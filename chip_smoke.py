@@ -13,11 +13,18 @@ It imports nothing of JAX or of ``video_features_tpu``; seeded weights come from
 2. ``build``: the kernels of ``video_features_torch/csrc`` built from source,
    one ``nvcc`` each, in parallel, with the seconds it took.
 3. ``kernels``: ``corr81`` and ``warp_corr81`` held against their plain PyTorch
-   versions on the card at the five main-path PWC levels (B=16), at a size that
-   is not a multiple of 16, in fp32 and bf16, with the tolerances of
-   tests/test_pallas_corr.py (corr fp32 rtol 1e-5 / atol 1e-6, bf16 0.02; fused
-   fp32 rtol 1e-4 / atol 1e-5, bf16 0.03); flows in U(-10, 10) reach out of the
-   image, and zero flow must equal ``corr81``. Times by CUDA events.
+   versions on the card with the tolerances of tests/test_pallas_corr.py (corr
+   fp32 rtol 1e-5 / atol 1e-6, bf16 0.02; fused fp32 rtol 1e-4 / atol 1e-5, bf16
+   0.03). ``corr81``: the five main-path PWC levels (B=16) and the edge shapes
+   of ``EDGE_SHAPES`` in all four dtype pairs, misaligned inputs (a ``[1:]``
+   slice, a view one element into a buffer), every compiled tile width at the
+   levels, and each launch plan's shared memory against the kernel's own
+   layout. ``warp_corr81``: the levels and a size that is not a multiple of 16,
+   fp32 and bf16; flows in U(-10, 10) reach out of the image, and zero flow
+   must equal ``corr81``. Then ``kernel_times``: per level, fp32, the kernel's
+   own time (``graph_ms``: launches captured in a CUDA graph), the eager call's
+   (``cuda_ms``), the wrapper's host cost (``enqueue_ms``) and, as a cross-check,
+   ``torch.profiler``'s device time.
 4. ``pwc``: ``pwc_forward_frames`` on a 65-frame 256×341 stack of the first
    sample video, kernel path against plain path, and the fused kernel
    (``VFT_FUSED_WARP_CORR=1``) against the default, timed after a warm-up in
@@ -41,6 +48,7 @@ without that last line. Without a card it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -91,6 +99,77 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def enqueue_ms(fn, iters: int = 50) -> float:
+    """Host milliseconds per call of ``fn`` to enqueue its work (no synchronize
+    inside the timed loop): the wrapper's own cost, whatever the card does."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def graph_ms(fn, launches: int = 50, replays: int = 5) -> float:
+    """The kernel's own milliseconds per launch: ``launches`` calls of ``fn``
+    captured into one CUDA graph and timed by CUDA events over ``replays``
+    replays, so no host cost of the wrapper lies between two launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # warm-up off the capture: builds, loads, first allocations
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * launches)
+
+
+def profiler_ms(fn, kernel: str, launches: int = 20):
+    """Cross-check of ``graph_ms``: the mean self device time of the CUDA
+    kernels whose name holds ``kernel`` (and not ``warp_`` unless asked) over
+    ``launches`` eager calls, by ``torch.profiler``; None when the profiler
+    reports no device time for them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        name = ev.key
+        if kernel not in name or ("warp_" in name) != kernel.startswith("warp_"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        total, count = total + us, count + ev.count
+    if count == 0 or total <= 0:
+        return None
+    return total / count / 1e3
+
+
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -131,40 +210,98 @@ def _check(name, out, ref, dtype, what):
     return err.max().item()
 
 
+# corr81's edge shapes: H or W of 1, just past a tile, C under the 8-channel
+# chunk, bf16 at C=196 (8-byte copies), odd C (bf16: plain loads)
+EDGE_SHAPES = ((2, 1, 37, 16), (2, 29, 1, 16), (1, 1, 1, 8), (2, 9, 33, 40), (1, 17, 17, 8),
+               (2, 11, 13, 3), (2, 9, 10, 196), (2, 5, 7, 5))
+# (f1, f2) dtype pairs the kernel takes; the composed warp path feeds (bf16, fp32)
+PAIRS = (("float32", "float32"), ("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+         ("float32", "bfloat16"))
+
+
+def _pair_tol(pair) -> str:
+    return "bfloat16" if "bfloat16" in pair else "float32"
+
+
+def _corr_case(corr, lib, f1, f2, what, nx=None) -> dict:
+    """corr81 on (f1, f2) against its plain version, with the launch plan's
+    shared memory held to the kernel's own layout."""
+    pair = (str(f1.dtype).split(".")[1], str(f2.dtype).split(".")[1])
+    plan = corr.corr81_plan(*f1.shape, f1.dtype, f2.dtype, corr._alignment(f1),
+                            corr._alignment(f2), nx)
+    smem = lib.corr81_smem_bytes(plan.nx, plan.chunk, f1.shape[-1],
+                                 corr._DTYPE_CODES[f1.dtype], corr._DTYPE_CODES[f2.dtype])
+    if smem != plan.smem:
+        raise AssertionError(f"corr81 {plan}: the kernel's layout needs {smem} B")
+    err = _check("corr81", corr.corr81_cuda(f1, f2, nx), corr.corr81_plain(f1, f2),
+                 _pair_tol(pair), f"{what} {pair} {plan}")
+    return {"shape": list(f1.shape), "pair": pair, "what": what, "nx": plan.nx,
+            "chunk": plan.chunk, "widths": [plan.width1, plan.width2], "corr81_err": err}
+
+
 def phase_kernels() -> dict:
     import torch
 
     from video_features_torch.ops import corr
+    from video_features_torch.ops.cuda_lib import load
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    checks, timing = [], {"corr81": [], "warp_corr81": []}
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def randn(shape, dtype="float32"):
+        return torch.randn(shape, generator=gen, device=dev).to(dt[dtype])
+
+    lib = load("corr81")
+    corr_checks, checks = [], []
+    # corr81 at the main-path levels and the edge shapes, in every dtype pair;
+    # misaligned inputs; every compiled tile width at the levels (fp32)
+    for pair in PAIRS:
+        for shape in [(B, h, w, c) for _, h, w, c in LEVELS] + list(EDGE_SHAPES):
+            f1, f2 = randn(shape, pair[0]), randn(shape, pair[1])
+            corr_checks.append(_corr_case(corr, lib, f1, f2, "level" if shape[0] == B else "edge"))
+        big = (3, 5, 7, 6)
+        f1, f2 = randn(big, pair[0]), randn(big, pair[1])
+        corr_checks.append(_corr_case(corr, lib, f1[1:], f2[:2], "f1[1:] misaligned"))
+        corr_checks.append(_corr_case(corr, lib, f1[:2], f2[1:], "f2[1:] misaligned"))
+        # one element into a flat buffer: 4-byte (fp32) or 2-byte (bf16) aligned
+        shape = (2, 9, 10, 8)
+        n = math.prod(shape)
+        flat1, flat2 = randn((n + 1,), pair[0]), randn((n + 1,), pair[1])
+        corr_checks.append(_corr_case(corr, lib, flat1[1:].view(shape), flat2[:n].view(shape),
+                                      "f1 offset by one element, misaligned"))
+        corr_checks.append(_corr_case(corr, lib, flat1[:n].view(shape), flat2[1:].view(shape),
+                                      "f2 offset by one element, misaligned"))
+    for _, h, w, c in LEVELS:
+        f1, f2 = randn((B, h, w, c)), randn((B, h, w, c))
+        for nx in corr.CORR81_NX:
+            corr_checks.append(_corr_case(corr, lib, f1, f2, "tile sweep", nx))
+    if not any(0 in x["widths"] for x in corr_checks) or not any(
+            8 in x["widths"] and "misaligned" in x["what"] for x in corr_checks):
+        raise AssertionError("corr81 checks missed the plain-load or misaligned copy paths")
+
+    # warp_corr81 (unchanged kernel) as before: main-path levels and a size that
+    # is not a multiple of 16, fp32 and bf16; zero flow against corr81
     shapes = [(B, h, w, c) for _, h, w, c in LEVELS] + [(3, 23, 37, 40)]
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for dtype_name in ("float32", "bfloat16"):
         for shape in shapes:
-            f1 = torch.randn(shape, generator=gen, device=dev).to(dtype)
-            f2 = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            f1, f2 = randn(shape, dtype_name), randn(shape, dtype_name)
             flow = (torch.rand(shape[:3] + (2,), generator=gen, device=dev) * 20 - 10)
             zero = torch.zeros_like(flow)
             k = corr.corr81_cuda(f1, f2)
-            e1 = _check("corr81", k, corr.corr81_plain(f1, f2), dtype_name, f"{shape}")
-            fused = corr.warp_corr81_cuda(f1, f2, flow)
-            e2 = _check("warp_corr81", fused, corr.warp_corr81_plain(f1, f2, flow),
-                        dtype_name, f"{shape}")
+            e2 = _check("warp_corr81", corr.warp_corr81_cuda(f1, f2, flow),
+                        corr.warp_corr81_plain(f1, f2, flow), dtype_name, f"{shape}")
             e3 = _check("corr81", corr.warp_corr81_cuda(f1, f2, zero), k, dtype_name,
                         f"{shape} zero flow vs corr81")
-            # mixed types, as the composed path feeds them: bf16 f1, fp32 warped f2
-            e4 = _check("corr81", corr.corr81_cuda(f1, f2.float()),
-                        corr.corr81_plain(f1, f2.float()), dtype_name, f"{shape} mixed")
-            checks.append({"dtype": dtype_name, "shape": shape, "corr81_err": e1,
-                           "warp_corr81_err": e2, "zero_flow_err": e3, "mixed_err": e4})
-    emit("kernels", checks=checks)
+            checks.append({"dtype": dtype_name, "shape": shape, "warp_corr81_err": e2,
+                           "zero_flow_err": e3})
+    emit("kernels", corr81_checks=corr_checks, warp_corr81_checks=checks)
 
     # times at the main-path shapes, fp32: corr81 at every level, the fused
     # kernel at levels 5..2 (the ones it replaces the composition at)
+    timing = {"corr81": [], "warp_corr81": []}
     for level, h, w, c in LEVELS:
-        f1 = torch.randn((B, h, w, c), generator=gen, device=dev)
-        f2 = torch.randn((B, h, w, c), generator=gen, device=dev)
+        f1, f2 = randn((B, h, w, c)), randn((B, h, w, c))
         flow = torch.rand((B, h, w, 2), generator=gen, device=dev) * 20 - 10
         px = B * h * w
         cases = [("corr81", lambda: corr.corr81_cuda(f1, f2),
@@ -175,14 +312,27 @@ def phase_kernels() -> dict:
                           lambda: corr.warp_corr81_plain(f1, f2, flow),
                           px * (2 * c + 2 + 81) * 4, px * (81 * 2 * c + 7 * c)))
         for name, kern, plain, nbytes, flops in cases:
-            ms = cuda_ms(kern, 50)
+            call_ms = cuda_ms(kern, 50)
+            host_ms = enqueue_ms(kern)
+            device_ms = graph_ms(kern)
+            prof_ms = profiler_ms(kern, name + "_kernel")
             plain_ms = cuda_ms(plain, 5)
             bms, by = bound(nbytes, flops)
-            timing[name].append({"level": level, "shape": [B, h, w, c], "ms": ms,
-                                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                                 "bytes": nbytes, "flops": flops})
-    emit("kernel_times", dtype="float32", warm_l2=True, **timing)
-    return {"checks": checks, "timing": timing}
+            row = {"level": level, "shape": [B, h, w, c], "device_ms": device_ms,
+                   "call_ms": call_ms, "enqueue_ms": host_ms, "profiler_ms": prof_ms,
+                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                   "share_of_bound": bms / device_ms, "bytes": nbytes, "flops": flops}
+            if name == "corr81":
+                row["nx"] = corr.corr81_plan(B, h, w, c, f1.dtype, f2.dtype).nx
+            timing[name].append(row)
+    emit("kernel_times", dtype="float32", warm_l2=True,
+         device_ms="50 launches in one CUDA graph, events over 5 replays",
+         call_ms="50 eager wrapper calls, events",
+         enqueue_ms="host clock over 50 eager calls, no synchronize inside",
+         profiler_ms="torch.profiler "
+         "self device time per launch, 20 eager calls (null: no device time seen)",
+         **timing)
+    return {"corr81_checks": corr_checks, "checks": checks, "timing": timing}
 
 
 def _stack_frames(n: int):
@@ -437,8 +587,12 @@ def kernel_summary(kern: dict, main: dict) -> dict:
             "launches": launches[name],
             "launches_from": ("default main path, both videos" if name == "corr81" else
                               "main path with VFT_FUSED_WARP_CORR=1, first video"),
-            "max_abs_err": max(c[f"{name}_err"] for c in kern["checks"]),
-            "ms": sum(x["ms"] for x in t), "plain_ms": sum(x["plain_ms"] for x in t),
+            "max_abs_err": max(c[f"{name}_err"] for c in
+                               kern["corr81_checks" if name == "corr81" else "checks"]),
+            "ms": sum(x["device_ms"] for x in t),
+            "device_ms": sum(x["device_ms"] for x in t),
+            "call_ms": sum(x["call_ms"] for x in t),
+            "plain_ms": sum(x["plain_ms"] for x in t),
             "bound_ms": max(b, o) * 1e3, "bound_by": "bytes" if b >= o else "operations",
             "library_ms": None, "library_note": NO_LIBRARY,
             "shapes": [x["shape"] for x in t],

@@ -6,8 +6,13 @@ Tolerances are those of tests/test_pallas_corr.py: corr fp32 rtol 1e-5 /
 atol 1e-6, bf16 0.02; fused warp+corr fp32 rtol 1e-4 / atol 1e-5 (fp32 sums
 taken in another order). The CUDA kernels themselves run only on a card: the
 one case here that needs one skips when torch.cuda.is_available() is false,
-and chip_smoke.py holds them against the plain versions on the H100.
+and chip_smoke.py holds them against the plain versions on the H100. What the
+CPU can check of the ``corr81`` kernel is its launch plan (``corr81_plan``):
+that its tiles cover the image once, that it fits the card's limits, and that
+its copy widths suit the rows and pointers it is given.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -108,3 +113,147 @@ def test_kernels_match_plain_on_card(rng):
     np.testing.assert_allclose(tcorr.warp_corr81_cuda(f1, f2, flow).cpu().numpy(),
                                tcorr.warp_corr81_plain(f1, f2, flow).cpu().numpy(),
                                rtol=1e-4, atol=1e-5)
+    # an edge shape just past a tile, f1 one element into its buffer (4-byte copies)
+    a, b = _pair(rng, (1, 17, 17, 8))
+    e1 = torch.from_numpy(np.concatenate([[0.0], a.ravel()]).astype(np.float32)).cuda()[1:]
+    e1, e2 = e1.view(a.shape), torch.from_numpy(b).cuda()
+    np.testing.assert_allclose(tcorr.corr81_cuda(e1, e2).cpu().numpy(),
+                               tcorr.corr81_plain(e1, e2).cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+# ---- the corr81 kernel's launch plan (pure Python; the kernel checks it too) ----
+
+PLAN_SHAPES = [(16, 4, 6, 196), (16, 8, 12, 128), (16, 16, 24, 96), (16, 32, 48, 64),
+               (16, 64, 96, 32), (2, 1, 37, 16), (2, 29, 1, 16), (1, 1, 1, 8),
+               (2, 9, 33, 40), (1, 17, 17, 8), (2, 11, 13, 3), (2, 9, 10, 196),
+               (2, 5, 7, 5)]
+PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("nx", [None] + list(tcorr.CORR81_NX))
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_corr81_plan_tiles_cover_every_pixel_once(shape, nx):
+    b, h, w, c = shape
+    plan = tcorr.corr81_plan(b, h, w, c, torch.float32, torch.float32, nx=nx)
+    ty, tx = plan.tile
+    assert plan.grid[2] == b
+    cover = np.zeros((h, w), np.int32)
+    for by in range(plan.grid[1]):
+        for bx in range(plan.grid[0]):
+            tile = cover[by * ty:(by + 1) * ty, bx * tx:(bx + 1) * tx]
+            assert tile.size > 0, "a block with no output pixel"
+            tile += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: str(p).replace("torch.", ""))
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_corr81_plan_fits_the_card(shape, pair):
+    for nx in tcorr.CORR81_NX:
+        plan = tcorr.corr81_plan(*shape, *pair, nx=nx)
+        assert 0 < plan.smem <= tcorr.MAX_SMEM
+        assert plan.block <= 1024 and plan.block % 32 == 0
+        assert plan.grid[0] < 2 ** 31 and plan.grid[1] <= 65535 and plan.grid[2] <= 65535
+        # the ring of three 8-channel stages or the output tile, whichever is larger
+        assert plan.smem >= plan.tile[0] * plan.tile[1] * 81 * 4
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: str(p).replace("torch.", ""))
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_corr81_plan_copy_widths_divide_row_and_pointer(shape, pair):
+    c = shape[-1]
+    for align1, align2 in ((16, 16), (8, 16), (16, 4), (4, 8), (2, 2)):
+        align1, align2 = max(align1, pair[0].itemsize), max(align2, pair[1].itemsize)
+        plan = tcorr.corr81_plan(*shape, *pair, align1, align2)
+        for width, dtype, al in ((plan.width1, pair[0], align1),
+                                 (plan.width2, pair[1], align2)):
+            assert width in (0, 4, 8, 16)
+            if width:
+                assert (c * dtype.itemsize) % width == 0 and al % width == 0
+            else:  # plain loads only where even a 4-byte copy is impossible
+                assert (c * dtype.itemsize) % 4 or al % 4
+            if al < 16:
+                assert width != 16
+
+
+def test_corr81_plan_narrows_copies_where_16_bytes_cannot_go():
+    bf, f32 = torch.bfloat16, torch.float32
+    # bf16 at C=196: 392-byte rows take 8-byte copies
+    assert tcorr.corr81_plan(16, 4, 6, 196, bf, bf)[6:] == (8, 8)
+    # the main path's fp32 levels all take 16-byte copies
+    for c in (196, 128, 96, 64, 32):
+        assert tcorr.corr81_plan(16, 8, 8, c, f32, f32)[6:] == (16, 16)
+    # bf16 with an odd C: plain loads in the kernel (width 0), never the plain version
+    assert tcorr.corr81_plan(2, 5, 7, 5, bf, f32)[6:] == (0, 4)
+    # a [1:] slice is contiguous but its pointer is offset by H·W·C·itemsize bytes;
+    # a view one element into a flat buffer is offset by the itemsize alone
+    base = torch.zeros((3, 5, 7, 6), dtype=f32)
+    flat = torch.zeros(2 * 9 * 10 * 8 + 1, dtype=f32)
+    if tcorr._alignment(base) == 16 and tcorr._alignment(flat) == 16:
+        sliced = base[1:]
+        assert sliced.is_contiguous() and tcorr._alignment(sliced) == 8
+        assert tcorr.corr81_plan(*sliced.shape, f32, f32, 8, 16)[6:] == (8, 8)
+        view = flat[1:].view(2, 9, 10, 8)
+        assert view.is_contiguous() and tcorr._alignment(view) == 4
+        assert tcorr.corr81_plan(*view.shape, f32, f32, 4, 16)[6:] == (4, 16)
+        assert tcorr.corr81_plan(*view.shape, bf, bf, 2, 16)[6:] == (0, 16)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES[:5])
+def test_corr81_plan_picks_the_cheapest_tile(shape):
+    b, h, w, _ = shape
+    plan = tcorr.corr81_plan(*shape, torch.float32, torch.float32)
+    costs = {nx: tcorr._nx_cost(b, h, w, nx) for nx in tcorr.CORR81_NX}
+    assert plan.nx in tcorr.CORR81_NX and costs[plan.nx] == min(costs.values())
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: str(p).replace("torch.", ""))
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_corr81_plan_chunk_is_the_largest_that_fits(shape, pair):
+    b, h, w, c = shape
+    plan = tcorr.corr81_plan(*shape, *pair)
+    cc = plan.chunk
+    assert cc >= 8 and cc & (cc - 1) == 0 and (cc // 2 < c or cc == 8)
+    s1, s2 = pair[0].itemsize, pair[1].itemsize
+    assert plan.smem == tcorr._smem_bytes(plan.nx, cc, c, s1, s2)
+    blocks = math.prod(plan.grid)
+    if blocks > 4 * tcorr._SMS:  # several waves: every block pipelines its channels
+        assert 2 * cc <= c or cc == 8
+    elif 2 * cc < 2 * c:  # a larger chunk would not fit the shared memory
+        budget = tcorr.MAX_SMEM if blocks <= tcorr._SMS else tcorr._TWO_BLOCKS_SMEM
+        assert tcorr._smem_bytes(plan.nx, 2 * cc, c, s1, s2) > budget
+
+
+def test_corr81_plan_at_the_main_path_levels():
+    """The tile widths and chunks the card measurements in PERF.md were taken with."""
+    f32 = torch.float32
+    got = {shape: tcorr.corr81_plan(*shape, f32, f32)[:3:2] for shape in PLAN_SHAPES[:5]}
+    assert got == {(16, 4, 6, 196): (1, 256), (16, 8, 12, 128): (1, 128),
+                   (16, 16, 24, 96): (3, 128), (16, 32, 48, 64): (3, 64),
+                   (16, 64, 96, 32): (4, 16)}
+    # level 2: 8×16 tiles; the ring is two 16-channel stages of 33,152 B each, more
+    # than the 41,472 B output tile that reuses it
+    assert tcorr.corr81_plan(16, 64, 96, 32, f32, f32).smem == 66_304
+
+
+def test_corr81_packed_plan_is_the_plan():
+    f32, bf = torch.float32, torch.bfloat16
+    p = tcorr.corr81_plan(2, 9, 33, 40, bf, f32, 16, 8)
+    packed = list(tcorr._packed_plan(2, 9, 33, 40, bf, f32, 16, 8, None, None))
+    assert packed == [2, 9, 33, 40, 1, 0, p.nx, p.chunk, p.width1, p.width2, p.grid[0],
+                      p.grid[1], p.block, p.smem]
+
+
+def test_corr81_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        tcorr.corr81_plan(1, 8, 8, 8, torch.float32, torch.float32, nx=5)
+    with pytest.raises(ValueError):
+        tcorr.corr81_plan(70000, 1, 1, 8, torch.float32, torch.float32)
+    with pytest.raises(TypeError):
+        tcorr.corr81_plan(1, 8, 8, 8, torch.float16, torch.float32)
+    with pytest.raises(ValueError):  # not a power of two
+        tcorr.corr81_plan(1, 8, 8, 64, torch.float32, torch.float32, chunk=24)
+    with pytest.raises(ValueError):  # a ring that does not fit a block's shared memory
+        tcorr.corr81_plan(1, 8, 64, 512, torch.float32, torch.float32, nx=4, chunk=512)

@@ -1,57 +1,133 @@
 // corr81: PWC-Net's 81-tap cost volume, written by hand for Hopper (sm_90a).
 //
 // Replaces the JAX package's two Pallas kernels of the same function,
-// video_features_tpu/ops/pallas_corr.py `corr81_pallas` (single block,
-// levels <= 16x16) and `corr81_pallas_tiled` (16x16 tiles with a 24x24 halo).
-// On this card there is no 16x16 compile cap and no VMEM gate, so one kernel
-// serves every pyramid level.
+// video_features_tpu/ops/pallas_corr.py `corr81_pallas` (:85, one block per
+// image, levels <= 16x16) and `corr81_pallas_tiled` (:138, 16x16 tiles that
+// read a 24x24 f2 halo). One kernel serves every pyramid level.
 //
 //   out[b,y,x,k] = (sum_c f1[b,y,x,c] * f2[b,y+dy,x+dx,c]) * (1/C)
 //   dy, dx in [-4, 4], k = (dy+4)*9 + (dx+4), f2 zero outside the image.
 //
-// f1, f2 (B,H,W,C) float32 or bfloat16 (they may differ: the warped-f2 path
-// pairs a bf16 f1 with a float32 f2), out (B,H,W,81) in f1's type. Sums are
-// fp32, one fmaf per channel in ascending channel order.
+// f1, f2 (B,H,W,C) float32 or bfloat16, in any of the four pairs; out
+// (B,H,W,81) in f1's type. Sums are fp32, one fmaf per channel in ascending
+// channel order (the order of warp_corr81.cu, so zero flow there equals this).
 //
-// What bounds it: per pixel the function must read C values of f1 and C of
-// f2 and write 81 values, (2C + 81)*4 bytes in fp32, and it does 81*2C flops:
-// 162C / (8C + 324) flop/byte, under the card's fp32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 flop/byte) at every C. So the bound is bytes; what keeps a
-// kernel from it is re-reading f2 — each f2 value feeds 81 outputs — from
-// device memory. Staging the 9-row f2 window in shared memory reads each f2
-// row from device memory (or L2) 9 times per strip, once for each output row
-// whose window holds it, and each f1 value once.
+// The bound: per pixel the function must read C values of f1 and C of f2 and
+// write 81 values, (2C + 81)*4 bytes in fp32, and it does 162*C flops: under
+// the card's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/byte) at every
+// C, so bytes bound it. What the design does about each way a kernel falls
+// short of that bound:
 //
-// Design (simple and correct first; wgmma and TMA are later work):
-// - one block per (b, output row y, strip of 32 x); 9 warps, warp w owns
-//   displacement row dy = w, lane l owns output x = x0 + l and keeps 9
-//   accumulators, one per dx;
-// - the channel axis is walked in chunks of 16: per chunk the block stages the
-//   f1 strip (32 x 16) and the f2 window (9 rows x 40 cols x 16) in shared
-//   memory as float, zero outside the image (the zero padding is this bounds
-//   check; no padded copy of f2 is made); rows are padded to 17 floats so the
-//   lanes of a warp hit distinct banks;
-// - the 32 x 81 outputs of the strip go through shared memory once more so
-//   the store to device memory is one contiguous, coalesced run.
+// 1. f2 re-reads. A block owns a TY x TX = 8 x (4*NX) output tile of one image
+//    and stages the (TY+8) x (TX+8) haloed f2 window and the tile's f1 in
+//    shared memory, one channel chunk at a time. Each f2 value comes from L2
+//    or device memory (TY+8)(TX+8)/(TY*TX) times: 3.0x at 8x16, 3.3x at 8x12
+//    (a 32-wide strip of one output row read it 11.25x).
+// 2. Shared-memory loads per FMA. A thread owns NX consecutive x of one output
+//    row and one dy, with 9*NX accumulators. Per 4 channels it reads NX f1 and
+//    NX+8 f2 vectors of 16 bytes (8 in bf16) for 36*NX FMAs: 0.11 loads per
+//    FMA at NX=4, against 1.1 scalar loads per FMA with one x per lane.
+//    Channels are innermost in shared memory. Every staged row (the pixels of
+//    one window row, one chunk of channels each) is padded to an odd number
+//    of 16-byte units, and the 8 lanes of each quarter-warp are 8 consecutive
+//    output rows at one x, so their 16-byte loads fall on 8 distinct bank
+//    groups (lanes of one warp that share a row share an address).
+// 3. Staging overlaps compute. Copies are cp.async into a ring of up to 3
+//    chunks, one __syncthreads per chunk: chunk k+2 is in flight while chunk
+//    k is multiplied. The chunk (a power of two, >= 8 channels) comes from the
+//    launch plan: as large as the shared memory of the blocks an SM must hold
+//    allows, and at most C/2 when the grid runs in more than one wave. Halo
+//    pixels outside the image are copied with src-size 0 (zero fill) from a
+//    clamped, valid address: that is the zero padding, with no padded copy of
+//    f2 and no branch on data. bf16 stays bf16 in shared memory and is widened
+//    at the FMA. Each input's copy width (16, 8 or 4 bytes; 0 = plain loads
+//    when even 4 is impossible, bf16 with an odd C) comes from the plan, by
+//    C*itemsize and the pointer's alignment.
+// 4. Idle lanes at narrow levels. NX is 4, 3 or 1 (tiles 8x16, 8x12, 8x4),
+//    picked per level by the plan (ops/corr.py `corr81_plan`) for the least
+//    shared-memory time on the busiest SM; every block has 288 threads (8 rows
+//    x 4 x-groups x 9 dy), whole warps, and at most 96 registers a thread, so
+//    two blocks fit an SM. Rows of a tile below the image still run (the
+//    4-row level 6 idles half its lanes).
+// 5. Its time is the kernel's own: chip_smoke.py times it in a CUDA graph,
+//    apart from the wrapper's host cost.
+//
+// Epilogue: the ring's shared memory is reused to stage the tile's TY*TX*81
+// outputs, and each output row's contiguous run of TX*81 values is stored
+// coalesced (the output is 56% of the bytes at level 2).
+// No tensor cores: the fp32 tolerance (rtol 1e-5) rules out TF32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
 constexpr int R = 4;
 constexpr int D = 2 * R + 1;  // 9
 constexpr int K = D * D;      // 81
-constexpr int TX = 32;        // output x per block
-constexpr int CC = 16;        // channels per chunk
-constexpr int CP = CC + 1;    // padded shared-memory row
-constexpr int WIN = TX + 2 * R;
-constexpr int NTHREADS = D * 32;
+constexpr int TY = 8;         // output rows per tile
+constexpr int XG = 4;         // x-groups per tile row
+constexpr int STAGES = 3;
+constexpr int VEC = 4;        // channels per shared-memory load in the inner loop
+constexpr int NTHREADS = TY * XG * D;  // 288
+constexpr int MAX_SMEM = 232448;       // a block's shared-memory limit on Hopper
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// The shared-memory ring for a channel chunk of `cc` channels (a power of two,
+// >= 8): per stage, the (TY+8) x (TX+8) f2 window, then the TY x TX f1 tile,
+// each row padded to an odd number of 16-byte units.
+struct Ring {
+  int ru1, ru2;             // 16-byte units per f1 / f2 row
+  int slot1, slot2;         // bytes of one pixel's chunk
+  int f2_bytes, stage_bytes;
+};
+
+__host__ __device__ inline Ring ring(int tx, int cc, int s1, int s2) {
+  Ring r;
+  r.slot1 = cc * s1;
+  r.slot2 = cc * s2;
+  r.ru1 = (tx * r.slot1 / 16) | 1;
+  r.ru2 = ((tx + 2 * R) * r.slot2 / 16) | 1;
+  r.f2_bytes = (TY + 2 * R) * r.ru2 * 16;
+  r.stage_bytes = r.f2_bytes + TY * r.ru1 * 16;
+  return r;
+}
+
+// Dynamic shared memory a launch needs: min(STAGES, chunks) ring stages, or the
+// TY x TX x 81 fp32 output tile that reuses them, whichever is larger.
+__host__ __device__ inline int smem_bytes(int tx, int cc, int C, int s1, int s2) {
+  const int chunks = (C + cc - 1) / cc;
+  const int ring_bytes = (chunks < STAGES ? chunks : STAGES) * ring(tx, cc, s1, s2).stage_bytes;
+  const int out_bytes = TY * tx * K * 4;
+  return ring_bytes > out_bytes ? ring_bytes : out_bytes;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool valid) {
+  const int n = valid ? BYTES : 0;  // src-size 0: the destination is zero-filled
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(BYTES), "r"(n));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -59,85 +135,229 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
-template <typename T1, typename T2>
-__global__ void __launch_bounds__(NTHREADS)
-corr81_kernel(const T1* __restrict__ f1, const T2* __restrict__ f2,
-              T1* __restrict__ out, int H, int W, int C) {
-  __shared__ float s1[TX][CP];
-  __shared__ float s2[D][WIN][CP];
-  __shared__ float so[TX * K];
+// VEC = 4 consecutive channels from shared memory, widened to float: one
+// 16-byte (fp32) or 8-byte (bf16) load
+struct Vec { float v[VEC]; };
+
+__device__ __forceinline__ Vec ldv(const float* p) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  return {{u.x, u.y, u.z, u.w}};
+}
+__device__ __forceinline__ Vec ldv(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return {{a.x, a.y, b.x, b.y}};
+}
+
+// Stage one channel chunk of an input's `rows` x `cols` pixel window, whose
+// top-left pixel is (y0, x0) of image `img`, into `dst` (row stride `ru`
+// 16-byte units). WIDTH bytes per copy (16, 8, 4; 0 = synchronous element
+// loads). The copies form a [pixel][piece] array; thread (p, q) of a P x Q
+// grid (Q = min(pieces, 32)) takes pixels p, p+P, ... and pieces q, q+Q, ...,
+// so a pixel's address is worked out once for all of its pieces, and Q
+// neighbouring threads copy neighbouring 16-byte pieces of one pixel.
+template <int WIDTH, typename T>
+__device__ __forceinline__ void stage_w(unsigned char* dst, const T* __restrict__ src,
+                                        int rows, int cols, int ru, int cc, int y0, int x0,
+                                        int c0, int H, int W, int C, size_t img) {
+  constexpr int BYTES = WIDTH > 0 ? WIDTH : (int)sizeof(T);
+  constexpr int ELEMS = BYTES / (int)sizeof(T);
+  const int pieces = cc / ELEMS;  // a power of two
+  const int q_lanes = pieces < 32 ? pieces : 32;
+  const int p_lanes = NTHREADS / q_lanes;  // NTHREADS = 9 * 32
+  const int q = threadIdx.x % q_lanes;
+  const int slot = cc * (int)sizeof(T);
+#pragma unroll 1  // unrolled, the copies' addresses would all be live at once
+  for (int pix = threadIdx.x / q_lanes; pix < rows * cols; pix += p_lanes) {
+    const int row = pix / cols, col = pix - row * cols;
+    const int y = y0 + row, x = x0 + col;
+    const bool inside = y >= 0 && y < H && x >= 0 && x < W;
+    const T* s = src + img + ((size_t)(inside ? y : 0) * W + (inside ? x : 0)) * C + c0;
+    unsigned char* d = dst + row * ru * 16 + col * slot;
+#pragma unroll 1
+    for (int j = q; j < pieces; j += q_lanes) {
+      const int c = j * ELEMS;
+      const bool valid = inside && c0 + c < C;
+      if constexpr (WIDTH > 0) {
+        cp_async<WIDTH>(smem_addr(d + j * BYTES), valid ? s + c : src, valid);
+      } else {
+        *reinterpret_cast<T*>(d + j * BYTES) = valid ? s[c] : from_f<T>(0.f);
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void stage(int width, unsigned char* dst, const T* __restrict__ src,
+                                      int rows, int cols, int ru, int cc, int y0, int x0,
+                                      int c0, int H, int W, int C, size_t img) {
+  switch (width) {
+    case 16: stage_w<16>(dst, src, rows, cols, ru, cc, y0, x0, c0, H, W, C, img); break;
+    case 8: stage_w<8>(dst, src, rows, cols, ru, cc, y0, x0, c0, H, W, C, img); break;
+    case 4: stage_w<4>(dst, src, rows, cols, ru, cc, y0, x0, c0, H, W, C, img); break;
+    default: stage_w<0>(dst, src, rows, cols, ru, cc, y0, x0, c0, H, W, C, img); break;
+  }
+}
+
+template <int NX, typename T1, typename T2>
+__global__ void __launch_bounds__(NTHREADS, 2)
+corr81_kernel(const T1* __restrict__ f1, const T2* __restrict__ f2, T1* __restrict__ out,
+              int H, int W, int C, int cc, int w1, int w2) {
+  constexpr int TX = XG * NX;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Ring rg = ring(TX, cc, sizeof(T1), sizeof(T2));
 
   const int x0 = blockIdx.x * TX;
-  const int y = blockIdx.y;
+  const int y0 = blockIdx.y * TY;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int dy = tid >> 5;
   const size_t img = (size_t)b * H * W * C;
+  // lanes: output row fastest, then dy, then x-group (see note, point 2)
+  const int tid = threadIdx.x;
+  const int ty = tid % TY;
+  const int dy = (tid / TY) % D;
+  const int xg = tid / (TY * D);
+  const int nchunks = (C + cc - 1) / cc;
 
-  float acc[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) acc[i] = 0.f;
+  // stage channel chunk k of the f2 window and the f1 tile into its ring slot
+  auto load_chunk = [&](int k) {
+    unsigned char* st = smem + (k % STAGES) * rg.stage_bytes;
+    stage<T2>(w2, st, f2, TY + 2 * R, TX + 2 * R, rg.ru2, cc, y0 - R, x0 - R, k * cc, H, W,
+              C, img);
+    stage<T1>(w1, st + rg.f2_bytes, f1, TY, TX, rg.ru1, cc, y0, x0, k * cc, H, W, C, img);
+  };
 
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    for (int i = tid; i < TX * CC; i += NTHREADS) {
-      const int cc = i % CC, xx = i / CC;
-      const int x = x0 + xx, c = c0 + cc;
-      float v = 0.f;
-      if (x < W && c < C) v = to_f(f1[img + ((size_t)y * W + x) * C + c]);
-      s1[xx][cc] = v;
-    }
-    for (int i = tid; i < D * WIN * CC; i += NTHREADS) {
-      const int cc = i % CC, t = i / CC;
-      const int xx = t % WIN, r = t / WIN;
-      const int yy = y + r - R, x = x0 + xx - R, c = c0 + cc;
-      float v = 0.f;
-      if (yy >= 0 && yy < H && x >= 0 && x < W && c < C)
-        v = to_f(f2[img + ((size_t)yy * W + x) * C + c]);
-      s2[r][xx][cc] = v;
-    }
-    __syncthreads();
-    const int cn = min(CC, C - c0);
-    for (int cc = 0; cc < cn; ++cc) {
-      const float a = s1[lane][cc];
+  float acc[NX][D];
 #pragma unroll
-      for (int dx = 0; dx < D; ++dx) acc[dx] = fmaf(a, s2[dy][lane + dx][cc], acc[dx]);
-    }
-    __syncthreads();
+  for (int x = 0; x < NX; ++x)
+#pragma unroll
+    for (int dx = 0; dx < D; ++dx) acc[x][dx] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nchunks) load_chunk(s);
+    cp_async_commit();
   }
+  for (int k = 0; k < nchunks; ++k) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk k have landed
+    __syncthreads();              // everyone's have, and chunk k-1's slot is free
+    if (k + STAGES - 1 < nchunks) load_chunk(k + STAGES - 1);
+    cp_async_commit();
 
+    const unsigned char* st = smem + (k % STAGES) * rg.stage_bytes;
+    const T2* r2 = reinterpret_cast<const T2*>(st + (ty + dy) * rg.ru2 * 16 +
+                                               xg * NX * rg.slot2);
+    const T1* r1 = reinterpret_cast<const T1*>(st + rg.f2_bytes + ty * rg.ru1 * 16 +
+                                               xg * NX * rg.slot1);
+    const int cn = min(cc, C - k * cc);  // channels past C are zero-filled up to VEC
+    for (int q = 0; q < cn; q += VEC) {
+      Vec a[NX];
+#pragma unroll
+      for (int x = 0; x < NX; ++x) a[x] = ldv(r1 + x * cc + q);
+#pragma unroll
+      for (int p = 0; p < NX + 2 * R; ++p) {
+        const Vec v = ldv(r2 + p * cc + q);
+#pragma unroll
+        for (int x = 0; x < NX; ++x) {
+          const int dx = p - x;
+          if (dx >= 0 && dx < D) {
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) acc[x][dx] = fmaf(a[x].v[j], v.v[j], acc[x][dx]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: reuse it for the output tile
+
+  float* so = reinterpret_cast<float*>(smem);
   const float scale = 1.0f / (float)C;
 #pragma unroll
-  for (int dx = 0; dx < D; ++dx) so[lane * K + dy * D + dx] = acc[dx] * scale;
+  for (int x = 0; x < NX; ++x)
+#pragma unroll
+    for (int dx = 0; dx < D; ++dx)
+      so[(ty * TX + xg * NX + x) * K + dy * D + dx] = acc[x][dx] * scale;
   __syncthreads();
+
   const int nx = min(TX, W - x0);
-  T1* o = out + (((size_t)b * H + y) * W + x0) * K;
-  for (int i = tid; i < nx * K; i += NTHREADS) o[i] = from_f<T1>(so[i]);
+  const int ny = min(TY, H - y0);
+  for (int row = 0; row < ny; ++row) {
+    T1* o = out + (((size_t)b * H + y0 + row) * W + x0) * K;
+    const float* src = so + row * TX * K;
+    for (int i = tid; i < nx * K; i += NTHREADS) o[i] = from_f<T1>(src[i]);
+  }
+}
+
+template <int NX, typename T1, typename T2>
+int launch(const void* f1, const void* f2, void* out, int B, int H, int W, int C, int cc,
+           int w1, int w2, int grid_x, int grid_y, int smem, cudaStream_t stream) {
+  constexpr int TX = XG * NX;
+  // the plan must cover the image and give the kernel the memory it needs
+  if (grid_x * TX < W || grid_y * TY < H || B > 65535 ||
+      smem < smem_bytes(TX, cc, C, sizeof(T1), sizeof(T2)) || smem > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  static unsigned long long attr_set = 0;  // one bit per device, per instantiation
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !((attr_set >> dev) & 1ull)) {
+    e = cudaFuncSetAttribute(corr81_kernel<NX, T1, T2>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) attr_set |= 1ull << dev;
+  }
+  corr81_kernel<NX, T1, T2><<<dim3(grid_x, grid_y, B), NTHREADS, smem, stream>>>(
+      static_cast<const T1*>(f1), static_cast<const T2*>(f2), static_cast<T1*>(out),
+      H, W, C, cc, w1, w2);
+  return (int)cudaGetLastError();
 }
 
 template <typename T1, typename T2>
-void launch(const void* f1, const void* f2, void* out, int B, int H, int W, int C,
-            cudaStream_t stream) {
-  dim3 grid((W + TX - 1) / TX, H, B);
-  corr81_kernel<T1, T2><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const T1*>(f1), static_cast<const T2*>(f2), static_cast<T1*>(out),
-      H, W, C);
+int launch_nx(int nx, const void* f1, const void* f2, void* out, int B, int H, int W,
+              int C, int cc, int w1, int w2, int gx, int gy, int smem, cudaStream_t s) {
+  switch (nx) {
+    case 4: return launch<4, T1, T2>(f1, f2, out, B, H, W, C, cc, w1, w2, gx, gy, smem, s);
+    case 3: return launch<3, T1, T2>(f1, f2, out, B, H, W, C, cc, w1, w2, gx, gy, smem, s);
+    case 1: return launch<1, T1, T2>(f1, f2, out, B, H, W, C, cc, w1, w2, gx, gy, smem, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
+
+bool width_ok(int w) { return w == 0 || w == 4 || w == 8 || w == 16; }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = launched), or cudaErrorInvalidValue for an unknown type pair.
-extern "C" int corr81_launch(const void* f1, const void* f2, void* out, int B, int H,
-                             int W, int C, int t1, int t2, void* stream) {
+// The launch plan, as the wrapper's `corr81_plan` computes it and packs it:
+// plan[] = {B, H, W, C, t1, t2, nx, cc, w1, w2, grid_x, grid_y, threads, smem},
+// dtype codes 0 = float32, 1 = bfloat16, copy widths w1/w2 in bytes. A plan
+// that does not cover the image or gives too little shared memory is refused.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a bad type pair or plan.
+extern "C" int corr81_launch(const void* f1, const void* f2, void* out, const int* plan,
+                             void* stream) {
+  const int B = plan[0], H = plan[1], W = plan[2], C = plan[3], t1 = plan[4], t2 = plan[5];
+  const int nx = plan[6], cc = plan[7], w1 = plan[8], w2 = plan[9];
+  const int grid_x = plan[10], grid_y = plan[11], threads = plan[12], smem = plan[13];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || H == 0 || W == 0) return 0;
-  if (t1 == 0 && t2 == 0) launch<float, float>(f1, f2, out, B, H, W, C, s);
-  else if (t1 == 1 && t2 == 1) launch<__nv_bfloat16, __nv_bfloat16>(f1, f2, out, B, H, W, C, s);
-  else if (t1 == 1 && t2 == 0) launch<__nv_bfloat16, float>(f1, f2, out, B, H, W, C, s);
-  else if (t1 == 0 && t2 == 1) launch<float, __nv_bfloat16>(f1, f2, out, B, H, W, C, s);
-  else return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (threads != NTHREADS || !width_ok(w1) || !width_ok(w2) || C < 1 || cc < 8 ||
+      (cc & (cc - 1)))
+    return (int)cudaErrorInvalidValue;
+#define VFT_LAUNCH(A, Bt) \
+  launch_nx<A, Bt>(nx, f1, f2, out, B, H, W, C, cc, w1, w2, grid_x, grid_y, smem, s)
+  if (t1 == 0 && t2 == 0) return VFT_LAUNCH(float, float);
+  if (t1 == 1 && t2 == 1) return VFT_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (t1 == 1 && t2 == 0) return VFT_LAUNCH(__nv_bfloat16, float);
+  if (t1 == 0 && t2 == 1) return VFT_LAUNCH(float, __nv_bfloat16);
+#undef VFT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared-memory bytes of a launch, by the kernel's own layout, so
+// the wrapper's plan can be checked against it on the card.
+extern "C" int corr81_smem_bytes(int nx, int cc, int C, int t1, int t2) {
+  return smem_bytes(XG * nx, cc, C, t1 ? 2 : 4, t2 ? 2 : 4);
 }
 
 extern "C" const char* vft_cuda_error_string(int code) {

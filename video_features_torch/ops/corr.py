@@ -23,12 +23,21 @@ window, f2 zero-padded by 4 (reference ``correlation.py:44-112``).
 
 Each kernel wrapper counts its launches in a plain integer attribute
 (``corr81_cuda.launches``), raised by one per launch and nowhere else.
+
+:func:`corr81_plan` is the ``corr81`` kernel's launch plan (tile, channel
+chunk, grid, block, dynamic shared memory, copy width of each input): a pure
+function of the shapes, dtypes and pointer alignments, so the CPU tests can
+hold its choices to the kernel's limits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+import math
 import os
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -84,24 +93,147 @@ def _check_features(name: str, f1: torch.Tensor, f2: torch.Tensor) -> None:
         raise ValueError(f"{name}: tensors too large for the kernel's int32 sizes")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+# csrc/corr81.cu's fixed geometry: 8-row tiles of 4 x-groups of NX pixels, one
+# thread per (row, x-group, dy), a ring of up to 3 stages of one channel chunk
+_TILE_ROWS, _X_GROUPS, _STAGES = 8, 4, 3
+_THREADS = _TILE_ROWS * _X_GROUPS * (2 * CORR_RADIUS + 1)  # 288
+CORR81_NX = (4, 3, 1)  # the compiled tile widths: 8×16, 8×12, 8×4
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+MAX_SMEM = 232_448  # shared memory one block may use on Hopper
+_TWO_BLOCKS_SMEM = 233_472 // 2 - 1024  # each of two blocks on one SM (1 KB reserved each)
+_MAX_GRID_Z = 65_535
 
 
-def corr81_cuda(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
+class Corr81Plan(NamedTuple):
+    nx: int                       # consecutive output x per thread
+    tile: Tuple[int, int]         # output rows × columns per block
+    chunk: int                    # channels per ring stage (a power of two, >= 8)
+    grid: Tuple[int, int, int]    # blocks along x tiles, y tiles, batch
+    block: int                    # threads per block
+    smem: int                     # dynamic shared-memory bytes
+    width1: int                   # bytes per copy of f1 (16, 8, 4; 0 = plain loads)
+    width2: int                   # the same for f2
+
+
+def _smem_bytes(nx: int, cc: int, c: int, s1: int, s2: int) -> int:
+    """The kernel's ``smem_bytes``: min(3, chunks) ring stages, or the fp32
+    output tile that reuses them, whichever is larger."""
+    tx, r = _X_GROUPS * nx, CORR_RADIUS
+    ru1 = (tx * cc * s1 // 16) | 1           # 16-byte units per row, odd
+    ru2 = ((tx + 2 * r) * cc * s2 // 16) | 1
+    stage = ((_TILE_ROWS + 2 * r) * ru2 + _TILE_ROWS * ru1) * 16
+    return max(min(_STAGES, -(-c // cc)) * stage, _TILE_ROWS * tx * CORR_CHANNELS * 4)
+
+
+def _chunks(c: int):
+    """The channel chunks the kernel takes for ``c`` channels: powers of two
+    from 8 up to the first that holds all of them."""
+    cc = 8
+    while True:
+        yield cc
+        if cc >= c:
+            return
+        cc *= 2
+
+
+def _copy_width(c: int, itemsize: int, align: int) -> int:
+    """The widest copy (16, 8 or 4 bytes) dividing both a pixel's ``c·itemsize``
+    bytes and the pointer's alignment; 0 when even 4 does not (plain loads)."""
+    width = 16
+    while width >= 4 and ((c * itemsize) % width or align % width):
+        width //= 2
+    return width if width >= 4 else 0
+
+
+def _grid(b: int, h: int, w: int, nx: int) -> Tuple[int, int, int]:
+    return (math.ceil(w / (_X_GROUPS * nx)), math.ceil(h / _TILE_ROWS), b)
+
+
+def _nx_cost(b: int, h: int, w: int, nx: int) -> int:
+    """Shared-memory cycles of the busiest SM, up to a common factor: blocks per
+    SM times one block's 16-byte loads per 4 channels (NX of f1, NX+8 of f2)."""
+    return math.ceil(math.prod(_grid(b, h, w, nx)) / _SMS) * (2 * nx + 2 * CORR_RADIUS)
+
+
+@functools.lru_cache(maxsize=None)
+def corr81_plan(b: int, h: int, w: int, c: int, dtype1: torch.dtype, dtype2: torch.dtype,
+                align1: int = 16, align2: int = 16, nx: Optional[int] = None,
+                chunk: Optional[int] = None) -> Corr81Plan:
+    """The ``corr81`` kernel's launch plan for (b, h, w, c) inputs of the given
+    dtypes whose data pointers are aligned to ``align1``/``align2`` bytes.
+
+    The tile width comes from :data:`CORR81_NX` by the least :func:`_nx_cost`
+    (ties to the wider tile). The channel chunk is the largest whose ring fits
+    the shared memory of as many blocks per SM as the grid needs (up to two),
+    and, when the grid needs more than one wave of two blocks per SM, one that
+    splits the channels in two or more so that each block's copies overlap
+    its arithmetic. ``nx`` or ``chunk`` override either choice.
+    """
+    if dtype1 not in _DTYPE_CODES or dtype2 not in _DTYPE_CODES:
+        raise TypeError(f"corr81: dtypes must be float32 or bfloat16, got {dtype1}, {dtype2}")
+    if b > _MAX_GRID_Z:
+        raise ValueError(f"corr81: batch {b} exceeds the grid's {_MAX_GRID_Z}")
+    if nx is None:
+        nx = min(CORR81_NX, key=lambda n: (_nx_cost(b, h, w, n), -n))
+    elif nx not in CORR81_NX:
+        raise ValueError(f"corr81: nx must be one of {CORR81_NX}, got {nx}")
+    s1, s2 = dtype1.itemsize, dtype2.itemsize
+    grid = _grid(b, h, w, nx)
+    fits = [cc for cc in _chunks(c) if _smem_bytes(nx, cc, c, s1, s2) <= MAX_SMEM]
+    if chunk is None:
+        blocks = math.prod(grid)
+        budget = MAX_SMEM if blocks <= _SMS else _TWO_BLOCKS_SMEM
+        fit = [cc for cc in fits if _smem_bytes(nx, cc, c, s1, s2) <= budget] or [8]
+        if blocks > 2 * 2 * _SMS:  # more than one wave: pipeline each block's channels
+            fit = [cc for cc in fit if 2 * cc <= c] or fit[:1]
+        chunk = max(fit)
+    elif chunk not in fits:
+        raise ValueError(f"corr81: chunk must be one of {fits}, got {chunk}")
+    return Corr81Plan(nx=nx, tile=(_TILE_ROWS, _X_GROUPS * nx), chunk=chunk, grid=grid,
+                      block=_THREADS, smem=_smem_bytes(nx, chunk, c, s1, s2),
+                      width1=_copy_width(c, s1, align1), width2=_copy_width(c, s2, align2))
+
+
+def _alignment(t: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides ``t``'s data pointer."""
+    p = t.data_ptr()
+    return min(16, p & -p) if p else 16
+
+
+def _on_device(dev: torch.device):
+    """``torch.cuda.device(dev)``, entered only when ``dev`` is not current."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_plan(b: int, h: int, w: int, c: int, dtype1: torch.dtype, dtype2: torch.dtype,
+                 align1: int, align2: int, nx: Optional[int], chunk: Optional[int]):
+    """The plan as the C entry point takes it: 14 packed ints, built once per plan."""
+    p = corr81_plan(b, h, w, c, dtype1, dtype2, align1, align2, nx, chunk)
+    return (ctypes.c_int * 14)(b, h, w, c, _DTYPE_CODES[dtype1], _DTYPE_CODES[dtype2],
+                               p.nx, p.chunk, p.width1, p.width2, p.grid[0], p.grid[1],
+                               p.block, p.smem)
+
+
+def corr81_cuda(f1: torch.Tensor, f2: torch.Tensor, nx: Optional[int] = None,
+                chunk: Optional[int] = None) -> torch.Tensor:
     """Launch the ``corr81`` kernel. f1, f2 contiguous (B, H, W, C) CUDA tensors,
-    fp32 or bf16 (they may differ) → (B, H, W, 81) in f1's dtype."""
+    fp32 or bf16 (they may differ) → (B, H, W, 81) in f1's dtype. ``nx`` and
+    ``chunk`` force a tile width and channel chunk (:func:`corr81_plan` picks
+    them otherwise)."""
     from .cuda_lib import check, load
 
     _check_features("corr81", f1, f2)
     b, h, w, c = f1.shape
+    plan = _packed_plan(b, h, w, c, f1.dtype, f2.dtype, _alignment(f1), _alignment(f2),
+                        nx, chunk)
     out = torch.empty((b, h, w, CORR_CHANNELS), dtype=f1.dtype, device=f1.device)
     lib = load("corr81")
-    with torch.cuda.device(f1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.corr81_launch(_ptr(f1), _ptr(f2), _ptr(out), b, h, w, c,
-                               _DTYPE_CODES[f1.dtype], _DTYPE_CODES[f2.dtype],
-                               ctypes.c_void_p(stream))
+    with _on_device(f1.device):
+        rc = lib.corr81_launch(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), plan,
+                               torch.cuda.current_stream().cuda_stream)
     check(lib, "corr81", rc)
     corr81_cuda.launches += 1
     return out
@@ -125,11 +257,11 @@ def warp_corr81_cuda(f1: torch.Tensor, f2: torch.Tensor,
     b, h, w, c = f1.shape
     out = torch.empty((b, h, w, CORR_CHANNELS), dtype=f1.dtype, device=f1.device)
     lib = load("warp_corr81")
-    with torch.cuda.device(f1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.warp_corr81_launch(_ptr(f1), _ptr(f2), _ptr(flow), _ptr(out), b, h, w, c,
-                                    _DTYPE_CODES[f1.dtype], _DTYPE_CODES[f2.dtype],
-                                    ctypes.c_void_p(stream))
+    with _on_device(f1.device):
+        rc = lib.warp_corr81_launch(f1.data_ptr(), f2.data_ptr(), flow.data_ptr(),
+                                    out.data_ptr(), b, h, w, c, _DTYPE_CODES[f1.dtype],
+                                    _DTYPE_CODES[f2.dtype],
+                                    torch.cuda.current_stream().cuda_stream)
     check(lib, "warp_corr81", rc)
     warp_corr81_cuda.launches += 1
     return out

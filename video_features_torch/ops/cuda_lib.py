@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C entry points of csrc/*.cu: (argtypes), all returning an int CUDA error
 SIGNATURES = {
-    "corr81": {"corr81_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "corr81": {"corr81_launch": [_P, _P, _P, _P, _P],  # f1, f2, out, int plan[14], stream
+               "corr81_smem_bytes": [_I] * 5},
     "warp_corr81": {"warp_corr81_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
 }
 
