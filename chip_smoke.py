@@ -15,20 +15,26 @@ It imports nothing of JAX or of ``video_features_tpu``; seeded weights come from
 3. ``kernels``: ``corr81`` and ``warp_corr81`` held against their plain PyTorch
    versions on the card with the tolerances of tests/test_pallas_corr.py (corr
    fp32 rtol 1e-5 / atol 1e-6, bf16 0.02; fused fp32 rtol 1e-4 / atol 1e-5, bf16
-   0.03). ``corr81``: the five main-path PWC levels (B=16) and the edge shapes
-   of ``EDGE_SHAPES`` in all four dtype pairs, misaligned inputs (a ``[1:]``
-   slice, a view one element into a buffer), every compiled tile width at the
-   levels, and each launch plan's shared memory against the kernel's own
-   layout. ``warp_corr81``: the levels and a size that is not a multiple of 16,
-   fp32 and bf16; flows in U(-10, 10) reach out of the image, and zero flow
-   must equal ``corr81``. Then ``kernel_times``: per level, fp32, the kernel's
-   own time (``graph_ms``: launches captured in a CUDA graph), the eager call's
-   (``cuda_ms``), the wrapper's host cost (``enqueue_ms``) and, as a cross-check,
-   ``torch.profiler``'s device time.
+   0.03), in all four dtype pairs, on misaligned inputs (a ``[1:]`` slice, a
+   view one element into a buffer) so that every copy width and the
+   element-load path run, at every compiled tile width, and with each launch
+   plan's shared memory held to the kernel's own layout. ``corr81``: the five
+   main-path PWC levels (B=16) and the edge shapes of ``EDGE_SHAPES``.
+   ``warp_corr81``: levels 5..2 and (3, 23, 37, 40); flows in U(-10, 10) reach
+   out of the image, ``threshold_flow`` puts weight sums within ulps of the
+   0.999 mask (the pixels zeroed must be the plain version's exactly), and
+   zero flow must equal ``corr81`` bit for bit (``torch.equal``).
 4. ``pwc``: ``pwc_forward_frames`` on a 65-frame 256×341 stack of the first
    sample video, kernel path against plain path, and the fused kernel
    (``VFT_FUSED_WARP_CORR=1``) against the default, timed after a warm-up in
-   the order kernel, plain, fused, fused, plain, kernel.
+   the order kernel, plain, fused, fused, plain, kernel. The warm-up records
+   the scaled flow each decoder level hands the cost volume.
+   Then ``kernel_times``: per level, fp32, the kernel's own time (``graph_ms``:
+   launches captured in a CUDA graph), the eager call's (``cuda_ms``), the
+   wrapper's host cost (``enqueue_ms``), ``torch.profiler``'s device time as a
+   cross-check, and for ``warp_corr81`` the composition
+   ``corr81_cuda(f1, warp_backward(f2, flow))`` beside it, with U(-10, 10) flows
+   and with the flows recorded from PWC.
 5. ``main_path``: ``video_features_torch.run.main`` exactly as the README's first
    command, on both sample videos, with seeded ``.pt`` checkpoints; outputs,
    shapes, finiteness, the done-manifest, and the kernels' launch counts (the
@@ -219,6 +225,30 @@ PAIRS = (("float32", "float32"), ("bfloat16", "bfloat16"), ("bfloat16", "float32
          ("float32", "bfloat16"))
 
 
+def threshold_flow(rng, b: int, h: int, w: int):
+    """(b, h, w, 2) float32 flows whose warp samples sit just inside an image
+    edge, so that each pixel's in-bounds weight sum lies within a few ulps of
+    warp_backward's 0.999 keep-threshold, on both sides of it. Per pixel: an
+    edge (left, right, top, bottom), a weight t on the in-image corners of
+    0.999 moved by -6..6 ulps (``np.nextafter``), the sample coordinate across
+    that edge at -1 + t (left, top) or size - t (right, bottom), the other
+    coordinate the pixel's own. numpy only, from ``rng`` (a numpy Generator)."""
+    import numpy as np
+
+    steps = [np.float32(0.999)]
+    for _ in range(6):
+        steps = ([np.nextafter(steps[0], np.float32(0))] + steps
+                 + [np.nextafter(steps[-1], np.float32(1))])
+    t = np.array(steps, np.float32)[rng.integers(0, len(steps), (b, h, w))].astype(np.float64)
+    edge = rng.integers(0, 4, (b, h, w))
+    gy, gx = np.meshgrid(np.arange(h, dtype=np.float64), np.arange(w, dtype=np.float64),
+                         indexing="ij")
+    flow = np.zeros((b, h, w, 2), np.float64)
+    flow[..., 0] = np.where(edge == 0, t - 1 - gx, np.where(edge == 1, w - t - gx, 0.0))
+    flow[..., 1] = np.where(edge == 2, t - 1 - gy, np.where(edge == 3, h - t - gy, 0.0))
+    return flow.astype(np.float32)
+
+
 def _pair_tol(pair) -> str:
     return "bfloat16" if "bfloat16" in pair else "float32"
 
@@ -253,7 +283,7 @@ def phase_kernels() -> dict:
         return torch.randn(shape, generator=gen, device=dev).to(dt[dtype])
 
     lib = load("corr81")
-    corr_checks, checks = [], []
+    corr_checks = []
     # corr81 at the main-path levels and the edge shapes, in every dtype pair;
     # misaligned inputs; every compiled tile width at the levels (fp32)
     for pair in PAIRS:
@@ -280,28 +310,146 @@ def phase_kernels() -> dict:
             8 in x["widths"] and "misaligned" in x["what"] for x in corr_checks):
         raise AssertionError("corr81 checks missed the plain-load or misaligned copy paths")
 
-    # warp_corr81 (unchanged kernel) as before: main-path levels and a size that
-    # is not a multiple of 16, fp32 and bf16; zero flow against corr81
-    shapes = [(B, h, w, c) for _, h, w, c in LEVELS] + [(3, 23, 37, 40)]
-    for dtype_name in ("float32", "bfloat16"):
-        for shape in shapes:
-            f1, f2 = randn(shape, dtype_name), randn(shape, dtype_name)
-            flow = (torch.rand(shape[:3] + (2,), generator=gen, device=dev) * 20 - 10)
-            zero = torch.zeros_like(flow)
-            k = corr.corr81_cuda(f1, f2)
-            e2 = _check("warp_corr81", corr.warp_corr81_cuda(f1, f2, flow),
-                        corr.warp_corr81_plain(f1, f2, flow), dtype_name, f"{shape}")
-            e3 = _check("corr81", corr.warp_corr81_cuda(f1, f2, zero), k, dtype_name,
-                        f"{shape} zero flow vs corr81")
-            checks.append({"dtype": dtype_name, "shape": shape, "warp_corr81_err": e2,
-                           "zero_flow_err": e3})
-    emit("kernels", corr81_checks=corr_checks, warp_corr81_checks=checks)
+    warp_checks = _warp_checks(corr, randn, gen)
+    emit("kernels", corr81_checks=corr_checks, warp_corr81_checks=warp_checks)
+    return {"corr81_checks": corr_checks, "warp_corr81_checks": warp_checks}
 
-    # times at the main-path shapes, fp32: corr81 at every level, the fused
-    # kernel at levels 5..2 (the ones it replaces the composition at)
+
+def _warp_case(corr, lib, f1, f2, flow, what, nx=None, zero_equal=False,
+               exact_zeros=False) -> dict:
+    """warp_corr81 on (f1, f2, flow) against its plain version, with the plan's
+    shared memory held to the kernel's own layout. A pixel whose 81 taps are
+    all 0 on one side must be all 0 on the other; the tolerance holds
+    everywhere, so a warped pixel that the 0.999 mask zeroes on one side only
+    fails it at up to 81 taps. (Single taps may still be 0 on one side only: an
+    fp32 sum can cancel to exactly 0 in one order of summation and not the
+    other; they are counted, not failed.) ``exact_zeros``: inputs whose taps
+    cannot cancel (all ones), so the taps that are 0 must be the same on both
+    sides. ``zero_equal``: also compare zero flow with ``corr81`` bit for bit."""
+    import torch
+
+    from video_features_torch.ops.warp import warp_backward
+
+    pair = (str(f1.dtype).split(".")[1], str(f2.dtype).split(".")[1])
+    plan = corr.warp_corr81_plan(*f1.shape, f1.dtype, f2.dtype, corr._alignment(f1),
+                                 corr._alignment(f2), nx)
+    smem = lib.warp_corr81_smem_bytes(plan.nx, plan.chunk, f1.shape[-1],
+                                      corr._DTYPE_CODES[f1.dtype], corr._DTYPE_CODES[f2.dtype])
+    if smem != plan.smem:
+        raise AssertionError(f"warp_corr81 {plan}: the kernel's layout needs {smem} B")
+    out = corr.warp_corr81_cuda(f1, f2, flow, nx)
+    ref = corr.warp_corr81_plain(f1, f2, flow)
+    tag = f"{what} {tuple(f1.shape)} {pair} {plan}"
+    err = _check("warp_corr81", out, ref, _pair_tol(pair), tag)
+    zeroed, ref_zeroed = out == 0, ref == 0
+    if not torch.equal(zeroed.all(-1), ref_zeroed.all(-1)):
+        raise AssertionError(f"warp_corr81 {tag}: "
+                             f"{int((zeroed.all(-1) != ref_zeroed.all(-1)).sum())} "
+                             "pixels zeroed on one side only")
+    if exact_zeros and not torch.equal(zeroed, ref_zeroed):
+        raise AssertionError(f"warp_corr81 {tag}: {int((zeroed != ref_zeroed).sum())} "
+                             "taps zeroed on one side only")
+    masked = warp_backward(torch.ones_like(flow[..., :1]), flow) == 0
+    row = {"shape": list(f1.shape), "pair": pair, "what": what, "nx": plan.nx,
+           "chunk": plan.chunk, "widths": [plan.width1, plan.width2],
+           "warp_corr81_err": err, "masked_pixels": int(masked.sum()),
+           "zero_taps": int(zeroed.sum()),
+           "one_sided_zero_taps": int((zeroed != ref_zeroed).sum())}
+    if zero_equal:
+        zero = corr.warp_corr81_cuda(f1, f2, torch.zeros_like(flow), nx)
+        if not torch.equal(zero, corr.corr81_cuda(f1, f2)):
+            raise AssertionError(f"warp_corr81 {tag}: zero flow differs from corr81")
+        row["zero_flow_equals_corr81"] = True
+    return row
+
+
+def _warp_checks(corr, randn, gen) -> list:
+    """warp_corr81 against its plain version: the main-path levels 5..2 and
+    (3, 23, 37, 40) in all four dtype pairs, with flows in U(-10, 10) (which
+    reach out of the image), zero flow (bit-equal to corr81) and
+    ``threshold_flow`` (weight sums within ulps of 0.999); every compiled tile
+    width at the levels; misaligned inputs, for every copy width and the
+    element-load path."""
+    import numpy as np
+    import torch
+
+    from video_features_torch.ops.cuda_lib import load
+
+    lib = load("warp_corr81")
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+
+    def flows(shape):
+        uniform = torch.rand(shape[:3] + (2,), generator=gen, device=dev) * 20 - 10
+        edge = torch.from_numpy(threshold_flow(rng, *shape[:3])).to(dev)
+        return uniform, edge
+
+    checks = []
+    shapes = [(B, h, w, c) for level, h, w, c in LEVELS if level < 6] + [(3, 23, 37, 40)]
+    for pair in PAIRS:
+        for shape in shapes:
+            f1, f2 = randn(shape, pair[0]), randn(shape, pair[1])
+            uniform, edge = flows(shape)
+            checks.append(_warp_case(corr, lib, f1, f2, uniform, "U(-10,10) flow",
+                                     zero_equal=True))
+            checks.append(_warp_case(corr, lib, f1, f2, edge, "threshold flow"))
+            if not checks[-1]["masked_pixels"]:
+                raise AssertionError(f"threshold flow masked no pixel at {shape} {pair}")
+            # all ones: every tap is the kept weight sums of its warped pixel
+            ones1, ones2 = (torch.ones(shape, dtype=dt, device=dev) for dt in (f1.dtype, f2.dtype))
+            checks.append(_warp_case(corr, lib, ones1, ones2, edge, "threshold flow, ones",
+                                     exact_zeros=True))
+        big = (3, 5, 7, 6)
+        f1, f2 = randn(big, pair[0]), randn(big, pair[1])
+        flow = flows((2,) + big[1:])[0]
+        checks.append(_warp_case(corr, lib, f1[1:], f2[:2], flow, "f1[1:] misaligned",
+                                 zero_equal=True))
+        checks.append(_warp_case(corr, lib, f1[:2], f2[1:], flow, "f2[1:] misaligned",
+                                 zero_equal=True))
+        shape = (2, 9, 10, 8)
+        n = math.prod(shape)
+        flat1, flat2 = randn((n + 1,), pair[0]), randn((n + 1,), pair[1])
+        flow = flows(shape)[0]
+        checks.append(_warp_case(corr, lib, flat1[1:].view(shape), flat2[:n].view(shape), flow,
+                                 "f1 offset by one element, misaligned", zero_equal=True))
+        checks.append(_warp_case(corr, lib, flat1[:n].view(shape), flat2[1:].view(shape), flow,
+                                 "f2 offset by one element, misaligned", zero_equal=True))
+    for shape in shapes[:-1]:
+        f1, f2 = randn(shape), randn(shape)
+        uniform, edge = flows(shape)
+        for nx in corr.CORR81_NX:
+            checks.append(_warp_case(corr, lib, f1, f2, uniform, "tile sweep", nx))
+            checks.append(_warp_case(corr, lib, f1, f2, edge, "tile sweep, threshold flow", nx))
+            checks.append(_warp_case(corr, lib, torch.ones_like(f1), torch.ones_like(f2), edge,
+                                     "tile sweep, threshold flow, ones", nx, exact_zeros=True))
+    widths = {(x["pair"][1], x["widths"][1]) for x in checks}
+    want = {("float32", 16), ("float32", 8), ("float32", 4),
+            ("bfloat16", 8), ("bfloat16", 4), ("bfloat16", 0)}
+    if not want <= widths:
+        raise AssertionError(f"warp_corr81 checks missed corner-read widths {want - widths}")
+    return checks
+
+
+def phase_kernel_times(pwc_flows: dict) -> dict:
+    """Per level, fp32, B=16, warm L2: each kernel's own time (``graph_ms``:
+    launches captured in a CUDA graph), the eager call's (``cuda_ms``), the
+    wrapper's host cost (``enqueue_ms``), ``torch.profiler``'s device time as
+    a cross-check, and the plain version's. ``corr81`` at every level;
+    ``warp_corr81`` at levels 5..2, with flows in U(-10, 10) and with the
+    level's scaled flow from the ``pwc`` phase (``pwc_flows``: level ->
+    (16, h, w, 2)), each beside ``composition_ms``, the device time of
+    ``corr81_cuda(f1, warp_backward(f2, flow))`` that the default path runs."""
+    import torch
+
+    from video_features_torch.ops import corr
+    from video_features_torch.ops.warp import warp_backward
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
     timing = {"corr81": [], "warp_corr81": []}
     for level, h, w, c in LEVELS:
-        f1, f2 = randn((B, h, w, c)), randn((B, h, w, c))
+        f1 = torch.randn((B, h, w, c), generator=gen, device=dev)
+        f2 = torch.randn((B, h, w, c), generator=gen, device=dev)
         flow = torch.rand((B, h, w, 2), generator=gen, device=dev) * 20 - 10
         px = B * h * w
         cases = [("corr81", lambda: corr.corr81_cuda(f1, f2),
@@ -324,6 +472,21 @@ def phase_kernels() -> dict:
                    "share_of_bound": bms / device_ms, "bytes": nbytes, "flops": flops}
             if name == "corr81":
                 row["nx"] = corr.corr81_plan(B, h, w, c, f1.dtype, f2.dtype).nx
+            else:
+                p = corr.warp_corr81_plan(B, h, w, c, f1.dtype, f2.dtype)
+                pflow = pwc_flows[level]
+                ref = corr.warp_corr81_plain(f1, f2, pflow)
+                _check("warp_corr81", corr.warp_corr81_cuda(f1, f2, pflow), ref, "float32",
+                       f"L{level} pwc flow")
+                row.update(
+                    nx=p.nx, chunk=p.chunk,
+                    composition_ms=graph_ms(lambda: corr.corr81_cuda(f1, warp_backward(f2, flow))),
+                    pwc_flow_device_ms=graph_ms(lambda: corr.warp_corr81_cuda(f1, f2, pflow)),
+                    pwc_flow_composition_ms=graph_ms(
+                        lambda: corr.corr81_cuda(f1, warp_backward(f2, pflow))),
+                    pwc_flow_max_abs=pflow.abs().max().item(),
+                    pwc_flow_zeroed_share=(warp_backward(torch.ones_like(f2[..., :1]), pflow)
+                                           == 0).float().mean().item())
             timing[name].append(row)
     emit("kernel_times", dtype="float32", warm_l2=True,
          device_ms="50 launches in one CUDA graph, events over 5 replays",
@@ -331,8 +494,10 @@ def phase_kernels() -> dict:
          enqueue_ms="host clock over 50 eager calls, no synchronize inside",
          profiler_ms="torch.profiler "
          "self device time per launch, 20 eager calls (null: no device time seen)",
+         composition_ms="corr81_cuda(f1, warp_backward(f2, flow)) as device_ms",
+         pwc_flow="the level's scaled flow of the pwc phase's first decoder chunk",
          **timing)
-    return {"corr81_checks": corr_checks, "checks": checks, "timing": timing}
+    return timing
 
 
 def _stack_frames(n: int):
@@ -368,10 +533,12 @@ def _median_seconds(fn, order) -> dict:
     return {n: {"median_s": statistics.median(r), "runs_s": r} for n, r in runs.items()}
 
 
-def phase_pwc(pwc_net) -> None:
+def phase_pwc(pwc_net) -> dict:
+    """Returns each decoder level's scaled flow (level -> (16, h, w, 2))."""
     import torch
 
     from video_features_torch.extractors.i3d import auto_pair_chunk
+    from video_features_torch.models import pwc as pwc_mod
     from video_features_torch.models.pwc import pwc_forward_frames
 
     frames = torch.from_numpy(_stack_frames(65)).cuda().float()
@@ -384,7 +551,21 @@ def phase_pwc(pwc_net) -> None:
         os.environ["VFT_FUSED_WARP_CORR"] = fused
         flows[name] = pwc_forward_frames(pwc_net, frames, corr_impl=impl, pair_chunk=chunk)
 
-    run("kernel")  # warm-up: cuDNN handles and first-call allocations
+    # warm-up (cuDNN handles and first-call allocations), recording the scaled
+    # flow that each decoder level hands the cost volume in the first chunk
+    level_flows = {}
+    warp_corr81 = pwc_mod.warp_corr81
+
+    def recorder(f1, f2, flow, impl="auto"):
+        level = {h: lv for lv, h, _, _ in LEVELS}[f1.shape[1]]
+        level_flows.setdefault(level, flow.detach().clone())
+        return warp_corr81(f1, f2, flow, impl)
+
+    pwc_mod.warp_corr81 = recorder
+    try:
+        run("kernel")
+    finally:
+        pwc_mod.warp_corr81 = warp_corr81
     secs = _median_seconds(run, ["kernel", "plain", "fused", "fused", "plain", "kernel"])
     os.environ.pop("VFT_FUSED_WARP_CORR")
     ref = flows["plain"]
@@ -399,6 +580,11 @@ def phase_pwc(pwc_net) -> None:
          shape=list(ref.shape), max_abs_flow=ref.abs().max().item(),
          max_err_kernel_vs_plain=errs["kernel"], max_err_fused_vs_plain=errs["fused"],
          seconds=secs)
+    if sorted(level_flows) != [2, 3, 4, 5] or any(
+            f.shape != (B, h, w, 2) for lv, h, w, _ in LEVELS if lv < 6
+            for f in [level_flows[lv]]):
+        raise AssertionError(f"pwc flows captured at {[tuple(f.shape) for f in level_flows.values()]}")
+    return level_flows
 
 
 def phase_breakdown() -> None:
@@ -568,7 +754,7 @@ def phase_golden(tmp: str, sds: dict) -> None:
     emit("golden", tolerance="rtol 1e-3, atol 1e-3*max|ref|", errors=errs)
 
 
-def kernel_summary(kern: dict, main: dict) -> dict:
+def kernel_summary(kern: dict, timing: dict, main: dict) -> dict:
     """Per kernel, the main path's launches and the sums over the main-path
     shapes of one launch each (corr81: levels 6..2, warp_corr81: levels 5..2)."""
     rows = []
@@ -578,7 +764,7 @@ def kernel_summary(kern: dict, main: dict) -> dict:
     launches = {"corr81": main["launches"]["corr81"],
                 "warp_corr81": main["fused_path"]["launches"]["warp_corr81"]}
     for name in ("corr81", "warp_corr81"):
-        t = kern["timing"][name]
+        t = timing[name]
         b = sum(x["bytes"] for x in t) / PEAK_BYTES_PER_S
         o = sum(x["flops"] for x in t) / PEAK_FP32_FLOPS
         rows.append({
@@ -587,8 +773,7 @@ def kernel_summary(kern: dict, main: dict) -> dict:
             "launches": launches[name],
             "launches_from": ("default main path, both videos" if name == "corr81" else
                               "main path with VFT_FUSED_WARP_CORR=1, first video"),
-            "max_abs_err": max(c[f"{name}_err"] for c in
-                               kern["corr81_checks" if name == "corr81" else "checks"]),
+            "max_abs_err": max(c[f"{name}_err"] for c in kern[f"{name}_checks"]),
             "ms": sum(x["device_ms"] for x in t),
             "device_ms": sum(x["device_ms"] for x in t),
             "call_ms": sum(x["call_ms"] for x in t),
@@ -597,6 +782,9 @@ def kernel_summary(kern: dict, main: dict) -> dict:
             "library_ms": None, "library_note": NO_LIBRARY,
             "shapes": [x["shape"] for x in t],
         })
+        if name == "warp_corr81":
+            rows[-1].update({k: sum(x[k] for x in t) for k in (
+                "composition_ms", "pwc_flow_device_ms", "pwc_flow_composition_ms")})
     return {"kernels": rows}
 
 
@@ -624,13 +812,14 @@ def main() -> int:
         os.environ.pop("VFT_ALLOW_RANDOM_WEIGHTS", None)
         pwc_net = PWCNet()
         pwc_net.load_state_dict(sds["pwc-sintel"])
-        phase_pwc(pwc_net.cuda().eval())
+        level_flows = phase_pwc(pwc_net.cuda().eval())
+        timing = phase_kernel_times(level_flows)
         main_info = phase_main_path(tmp)
         phase_breakdown()
         phase_golden(tmp, sds)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(json.dumps(kernel_summary(kern, main_info)))
+    print(json.dumps(kernel_summary(kern, timing, main_info)))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                               "count": info["count"]}}))

@@ -7,12 +7,14 @@ atol 1e-6, bf16 0.02; fused warp+corr fp32 rtol 1e-4 / atol 1e-5 (fp32 sums
 taken in another order). The CUDA kernels themselves run only on a card: the
 one case here that needs one skips when torch.cuda.is_available() is false,
 and chip_smoke.py holds them against the plain versions on the H100. What the
-CPU can check of the ``corr81`` kernel is its launch plan (``corr81_plan``):
-that its tiles cover the image once, that it fits the card's limits, and that
-its copy widths suit the rows and pointers it is given.
+CPU can check of the kernels is their launch plans (``corr81_plan``,
+``warp_corr81_plan``): that their tiles cover the image once, that they fit the
+card's limits, and that their copy widths suit the rows and pointers they are
+given; and that the build cache sees the shared header.
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -20,13 +22,17 @@ import torch
 
 import jax.numpy as jnp
 
+from chip_smoke import threshold_flow
 from video_features_tpu.ops.pallas_corr import (
     corr81_pallas,
     corr81_pallas_tiled,
     corr81_xla,
     warp_corr81_pallas,
 )
+from video_features_tpu.ops.warp import warp_backward as jax_warp_backward
 from video_features_torch.ops import corr as tcorr
+from video_features_torch.ops import cuda_lib
+from video_features_torch.ops.warp import bilinear_sample, warp_backward
 
 JAX_CORR = {
     "pallas": lambda a, b: corr81_pallas(a, b, interpret=True),
@@ -72,6 +78,56 @@ def test_warp_corr81_zero_flow_is_plain_corr(rng):
     zero = torch.zeros((2, 20, 24, 2), dtype=torch.float32)
     np.testing.assert_allclose(tcorr.warp_corr81_plain(f1, f2, zero).numpy(),
                                tcorr.corr81_plain(f1, f2).numpy(), rtol=1e-5, atol=1e-6)
+
+
+def _keep_margin_ulps(flow: torch.Tensor) -> torch.Tensor:
+    """Each pixel's sampled in-bounds weight sum minus 0.999, in ulps of 0.999."""
+    b, h, w, _ = flow.shape
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    coords = torch.stack([xs, ys], -1)[None] + flow
+    mask = bilinear_sample(torch.ones((b, h, w, 1)), coords)[..., 0].double()
+    t = np.float32(0.999)
+    return (mask - float(t)) / float(np.spacing(t))
+
+
+def test_threshold_flows_straddle_the_keep_threshold(rng):
+    """The flows of the threshold tests put many pixels within 3 ulps of 0.999,
+    on both sides (kept: sum > 0.999; zeroed: sum <= 0.999)."""
+    margin = _keep_margin_ulps(torch.from_numpy(threshold_flow(rng, 2, 20, 24)))
+    near = margin.abs() <= 3
+    assert int((near & (margin > 0)).sum()) >= 20
+    assert int((near & (margin <= 0)).sum()) >= 20
+    assert float(margin.abs().max()) <= 16
+
+
+@pytest.mark.parametrize("shape", [(2, 20, 24, 16), (1, 9, 37, 8)])
+def test_warp_zeroes_the_pixels_jax_zeroes_at_the_threshold(rng, shape):
+    """Weight sums within ulps of 0.999: the port's warp_backward zeroes exactly
+    the pixels the JAX gather warp zeroes, and the values match."""
+    f2 = rng.normal(size=shape).astype(np.float32)
+    flow = threshold_flow(rng, *shape[:3])
+    ref = np.asarray(jax_warp_backward(jnp.asarray(f2), jnp.asarray(flow), impl="gather"))
+    out = warp_backward(torch.from_numpy(f2), torch.from_numpy(flow)).numpy()
+    zeroed = (out == 0).all(-1)
+    assert 0 < zeroed.sum() < zeroed.size
+    np.testing.assert_array_equal(zeroed, (ref == 0).all(-1))
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_warp_corr81_zeroes_the_taps_pallas_zeroes_at_the_threshold(rng):
+    """The same flows through the fused function: every tap that reads a zeroed
+    (or out-of-image) warped pixel is 0 in both, the rest within tolerance."""
+    f1, f2 = _pair(rng, (2, 20, 24, 16))
+    flow = threshold_flow(rng, 2, 20, 24)
+    ref = np.asarray(warp_corr81_pallas(jnp.asarray(f1), jnp.asarray(f2),
+                                        jnp.asarray(flow), interpret=True))
+    out = tcorr.warp_corr81_plain(torch.from_numpy(f1), torch.from_numpy(f2),
+                                  torch.from_numpy(flow)).numpy()
+    np.testing.assert_array_equal(out == 0, ref == 0)
+    np.testing.assert_array_equal((out == 0).all(-1), (ref == 0).all(-1))
+    assert 0 < (out == 0).sum() < out.size
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("impl", ["auto", "pallas", "xla"])
@@ -257,3 +313,84 @@ def test_corr81_plan_refuses_what_the_kernel_cannot_take():
         tcorr.corr81_plan(1, 8, 8, 64, torch.float32, torch.float32, chunk=24)
     with pytest.raises(ValueError):  # a ring that does not fit a block's shared memory
         tcorr.corr81_plan(1, 8, 64, 512, torch.float32, torch.float32, nx=4, chunk=512)
+
+
+# ---- the fused warp_corr81 kernel's launch plan ----
+
+WARP_SHAPES = [(16, 8, 12, 128), (16, 16, 24, 96), (16, 32, 48, 64), (16, 64, 96, 32),
+               (3, 23, 37, 40)]
+
+
+@pytest.mark.parametrize("align", [16, 8, 4, 2])
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: str(p).replace("torch.", ""))
+@pytest.mark.parametrize("shape", WARP_SHAPES)
+def test_warp_corr81_plan_fits_the_card(shape, pair, align):
+    """At every main-path level and an edge shape, in every dtype pair and
+    pointer alignment: the plan fits a block (two a SM when the grid needs
+    more than one block a SM), takes a compiled tile, a power-of-two chunk of
+    8 or more, and copies that divide the rows and the pointers."""
+    c = shape[-1]
+    align1, align2 = max(align, pair[0].itemsize), max(align, pair[1].itemsize)
+    plan = tcorr.warp_corr81_plan(*shape, *pair, align1, align2)
+    assert 0 < plan.smem <= tcorr.MAX_SMEM
+    assert plan.smem == tcorr._warp_smem_bytes(plan.nx, plan.chunk, c, pair[0].itemsize,
+                                               pair[1].itemsize)
+    if math.prod(plan.grid) > tcorr._SMS:
+        assert plan.smem <= tcorr._TWO_BLOCKS_SMEM
+    assert plan.nx in tcorr.CORR81_NX and plan.tile == (8, 4 * plan.nx)
+    assert plan.block == 288 and plan.grid[2] == shape[0]
+    assert plan.grid[0] * plan.tile[1] >= shape[2] > (plan.grid[0] - 1) * plan.tile[1]
+    assert plan.grid[1] * plan.tile[0] >= shape[1] > (plan.grid[1] - 1) * plan.tile[0]
+    assert plan.chunk >= 8 and plan.chunk & (plan.chunk - 1) == 0
+    assert 2 * plan.chunk <= c or plan.chunk == 8
+    for width, dtype, al, most in ((plan.width1, pair[0], align1, 16),
+                                   (plan.width2, pair[1], align2, 4 * pair[1].itemsize)):
+        assert width in (0, 4, 8, 16) and width <= most
+        if width:
+            assert (c * dtype.itemsize) % width == 0 and al % width == 0
+        else:  # element loads only where even a 4-byte copy is impossible
+            assert (c * dtype.itemsize) % 4 or al % 4
+
+
+def test_warp_corr81_plan_at_the_main_path_levels():
+    """The tile widths and chunks the card measurements in PERF.md were taken with."""
+    f32 = torch.float32
+    got = {shape: tcorr.warp_corr81_plan(*shape, f32, f32)[:3:2] for shape in WARP_SHAPES[:4]}
+    assert got == {(16, 8, 12, 128): (1, 32), (16, 16, 24, 96): (1, 16),
+                   (16, 32, 48, 64): (3, 8), (16, 64, 96, 32): (4, 8)}
+    # level 2: the corner tables (384 positions × 32 B), the staging of four corners'
+    # 8-channel reads and two ring stages of 16,768 B
+    assert tcorr.warp_corr81_plan(16, 64, 96, 32, f32, f32).smem == (
+        384 * 32 + 4 * 384 * 8 * 4 + 2 * 16_768)
+
+
+def test_warp_corr81_packed_plan_is_the_plan():
+    f32, bf = torch.float32, torch.bfloat16
+    p = tcorr.warp_corr81_plan(3, 23, 37, 40, f32, bf, 8, 16, nx=3, chunk=8)
+    packed = list(tcorr._packed_plan(3, 23, 37, 40, f32, bf, 8, 16, 3, 8, fused=True))
+    assert packed == [3, 23, 37, 40, 0, 1, 3, 8, p.width1, p.width2, p.grid[0], p.grid[1],
+                      288, p.smem]
+    assert (p.width1, p.width2) == (8, 8)
+
+
+@pytest.mark.parametrize("override", [dict(nx=2), dict(nx=5), dict(chunk=4), dict(chunk=24),
+                                      dict(nx=4, chunk=512)])
+def test_warp_corr81_plan_refuses_overrides_outside_the_compiled_set(override):
+    with pytest.raises(ValueError):
+        tcorr.warp_corr81_plan(1, 8, 64, 512, torch.float32, torch.float32, **override)
+
+
+def test_library_path_sees_every_header(tmp_path, monkeypatch):
+    """An edited shared header gives the library a new name, so a stale build
+    is never loaded; an unrelated source does not."""
+    for name, text in (("a.cu", '#include "tile.cuh"\n'), ("b.cu", "// b\n"),
+                       ("tile.cuh", "// v1\n")):
+        (tmp_path / name).write_text(text)
+    monkeypatch.setattr(cuda_lib, "CSRC_DIR", str(tmp_path))
+    before = cuda_lib.library_path("a")
+    assert cuda_lib.library_path("a") == before
+    (tmp_path / "b.cu").write_text("// b, edited\n")
+    assert cuda_lib.library_path("a") == before
+    (tmp_path / "tile.cuh").write_text("// v2\n")
+    after = cuda_lib.library_path("a")
+    assert after != before and os.path.basename(after).startswith("a-")

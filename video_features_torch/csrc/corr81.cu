@@ -10,7 +10,8 @@
 //
 // f1, f2 (B,H,W,C) float32 or bfloat16, in any of the four pairs; out
 // (B,H,W,81) in f1's type. Sums are fp32, one fmaf per channel in ascending
-// channel order (the order of warp_corr81.cu, so zero flow there equals this).
+// channel order. The ring layout, inner loop and epilogue are corr81_tile.cuh's,
+// which warp_corr81.cu shares, so zero flow there equals this bit for bit.
 //
 // The bound: per pixel the function must read C values of f1 and C of f2 and
 // write 81 values, (2C + 81)*4 bytes in fp32, and it does 162*C flops: under
@@ -57,43 +58,11 @@
 // coalesced (the output is 56% of the bytes at level 2).
 // No tensor cores: the fp32 tolerance (rtol 1e-5) rules out TF32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "corr81_tile.cuh"
 
 namespace {
 
-constexpr int R = 4;
-constexpr int D = 2 * R + 1;  // 9
-constexpr int K = D * D;      // 81
-constexpr int TY = 8;         // output rows per tile
-constexpr int XG = 4;         // x-groups per tile row
 constexpr int STAGES = 3;
-constexpr int VEC = 4;        // channels per shared-memory load in the inner loop
-constexpr int NTHREADS = TY * XG * D;  // 288
-constexpr int MAX_SMEM = 232448;       // a block's shared-memory limit on Hopper
-
-// The shared-memory ring for a channel chunk of `cc` channels (a power of two,
-// >= 8): per stage, the (TY+8) x (TX+8) f2 window, then the TY x TX f1 tile,
-// each row padded to an odd number of 16-byte units.
-struct Ring {
-  int ru1, ru2;             // 16-byte units per f1 / f2 row
-  int slot1, slot2;         // bytes of one pixel's chunk
-  int f2_bytes, stage_bytes;
-};
-
-__host__ __device__ inline Ring ring(int tx, int cc, int s1, int s2) {
-  Ring r;
-  r.slot1 = cc * s1;
-  r.slot2 = cc * s2;
-  r.ru1 = (tx * r.slot1 / 16) | 1;
-  r.ru2 = ((tx + 2 * R) * r.slot2 / 16) | 1;
-  r.f2_bytes = (TY + 2 * R) * r.ru2 * 16;
-  r.stage_bytes = r.f2_bytes + TY * r.ru1 * 16;
-  return r;
-}
 
 // Dynamic shared memory a launch needs: min(STAGES, chunks) ring stages, or the
 // TY x TX x 81 fp32 output tile that reuses them, whichever is larger.
@@ -102,102 +71,6 @@ __host__ __device__ inline int smem_bytes(int tx, int cc, int C, int s1, int s2)
   const int ring_bytes = (chunks < STAGES ? chunks : STAGES) * ring(tx, cc, s1, s2).stage_bytes;
   const int out_bytes = TY * tx * K * 4;
   return ring_bytes > out_bytes ? ring_bytes : out_bytes;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? BYTES : 0;  // src-size 0: the destination is zero-filled
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(n));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
-                 "n"(BYTES), "r"(n));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// VEC = 4 consecutive channels from shared memory, widened to float: one
-// 16-byte (fp32) or 8-byte (bf16) load
-struct Vec { float v[VEC]; };
-
-__device__ __forceinline__ Vec ldv(const float* p) {
-  const float4 u = *reinterpret_cast<const float4*>(p);
-  return {{u.x, u.y, u.z, u.w}};
-}
-__device__ __forceinline__ Vec ldv(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return {{a.x, a.y, b.x, b.y}};
-}
-
-// Stage one channel chunk of an input's `rows` x `cols` pixel window, whose
-// top-left pixel is (y0, x0) of image `img`, into `dst` (row stride `ru`
-// 16-byte units). WIDTH bytes per copy (16, 8, 4; 0 = synchronous element
-// loads). The copies form a [pixel][piece] array; thread (p, q) of a P x Q
-// grid (Q = min(pieces, 32)) takes pixels p, p+P, ... and pieces q, q+Q, ...,
-// so a pixel's address is worked out once for all of its pieces, and Q
-// neighbouring threads copy neighbouring 16-byte pieces of one pixel.
-template <int WIDTH, typename T>
-__device__ __forceinline__ void stage_w(unsigned char* dst, const T* __restrict__ src,
-                                        int rows, int cols, int ru, int cc, int y0, int x0,
-                                        int c0, int H, int W, int C, size_t img) {
-  constexpr int BYTES = WIDTH > 0 ? WIDTH : (int)sizeof(T);
-  constexpr int ELEMS = BYTES / (int)sizeof(T);
-  const int pieces = cc / ELEMS;  // a power of two
-  const int q_lanes = pieces < 32 ? pieces : 32;
-  const int p_lanes = NTHREADS / q_lanes;  // NTHREADS = 9 * 32
-  const int q = threadIdx.x % q_lanes;
-  const int slot = cc * (int)sizeof(T);
-#pragma unroll 1  // unrolled, the copies' addresses would all be live at once
-  for (int pix = threadIdx.x / q_lanes; pix < rows * cols; pix += p_lanes) {
-    const int row = pix / cols, col = pix - row * cols;
-    const int y = y0 + row, x = x0 + col;
-    const bool inside = y >= 0 && y < H && x >= 0 && x < W;
-    const T* s = src + img + ((size_t)(inside ? y : 0) * W + (inside ? x : 0)) * C + c0;
-    unsigned char* d = dst + row * ru * 16 + col * slot;
-#pragma unroll 1
-    for (int j = q; j < pieces; j += q_lanes) {
-      const int c = j * ELEMS;
-      const bool valid = inside && c0 + c < C;
-      if constexpr (WIDTH > 0) {
-        cp_async<WIDTH>(smem_addr(d + j * BYTES), valid ? s + c : src, valid);
-      } else {
-        *reinterpret_cast<T*>(d + j * BYTES) = valid ? s[c] : from_f<T>(0.f);
-      }
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void stage(int width, unsigned char* dst, const T* __restrict__ src,
-                                      int rows, int cols, int ru, int cc, int y0, int x0,
-                                      int c0, int H, int W, int C, size_t img) {
-  switch (width) {
-    case 16: stage_w<16>(dst, src, rows, cols, ru, cc, y0, x0, c0, H, W, C, img); break;
-    case 8: stage_w<8>(dst, src, rows, cols, ru, cc, y0, x0, c0, H, W, C, img); break;
-    case 4: stage_w<4>(dst, src, rows, cols, ru, cc, y0, x0, c0, H, W, C, img); break;
-    default: stage_w<0>(dst, src, rows, cols, ru, cc, y0, x0, c0, H, W, C, img); break;
-  }
 }
 
 template <int NX, typename T1, typename T2>
@@ -212,11 +85,7 @@ corr81_kernel(const T1* __restrict__ f1, const T2* __restrict__ f2, T1* __restri
   const int y0 = blockIdx.y * TY;
   const int b = blockIdx.z;
   const size_t img = (size_t)b * H * W * C;
-  // lanes: output row fastest, then dy, then x-group (see note, point 2)
-  const int tid = threadIdx.x;
-  const int ty = tid % TY;
-  const int dy = (tid / TY) % D;
-  const int xg = tid / (TY * D);
+  const Lane ln = lane();  // see note, point 2
   const int nchunks = (C + cc - 1) / cc;
 
   // stage channel chunk k of the f2 window and the f1 tile into its ring slot
@@ -243,50 +112,13 @@ corr81_kernel(const T1* __restrict__ f1, const T2* __restrict__ f2, T1* __restri
     __syncthreads();              // everyone's have, and chunk k-1's slot is free
     if (k + STAGES - 1 < nchunks) load_chunk(k + STAGES - 1);
     cp_async_commit();
-
-    const unsigned char* st = smem + (k % STAGES) * rg.stage_bytes;
-    const T2* r2 = reinterpret_cast<const T2*>(st + (ty + dy) * rg.ru2 * 16 +
-                                               xg * NX * rg.slot2);
-    const T1* r1 = reinterpret_cast<const T1*>(st + rg.f2_bytes + ty * rg.ru1 * 16 +
-                                               xg * NX * rg.slot1);
-    const int cn = min(cc, C - k * cc);  // channels past C are zero-filled up to VEC
-    for (int q = 0; q < cn; q += VEC) {
-      Vec a[NX];
-#pragma unroll
-      for (int x = 0; x < NX; ++x) a[x] = ldv(r1 + x * cc + q);
-#pragma unroll
-      for (int p = 0; p < NX + 2 * R; ++p) {
-        const Vec v = ldv(r2 + p * cc + q);
-#pragma unroll
-        for (int x = 0; x < NX; ++x) {
-          const int dx = p - x;
-          if (dx >= 0 && dx < D) {
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) acc[x][dx] = fmaf(a[x].v[j], v.v[j], acc[x][dx]);
-          }
-        }
-      }
-    }
+    // channels past C are zero-filled up to VEC
+    tile_fma<NX, T1, T2>(acc, smem + (k % STAGES) * rg.stage_bytes, rg, ln, cc,
+                         min(cc, C - k * cc));
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: reuse it for the output tile
-
-  float* so = reinterpret_cast<float*>(smem);
-  const float scale = 1.0f / (float)C;
-#pragma unroll
-  for (int x = 0; x < NX; ++x)
-#pragma unroll
-    for (int dx = 0; dx < D; ++dx)
-      so[(ty * TX + xg * NX + x) * K + dy * D + dx] = acc[x][dx] * scale;
-  __syncthreads();
-
-  const int nx = min(TX, W - x0);
-  const int ny = min(TY, H - y0);
-  for (int row = 0; row < ny; ++row) {
-    T1* o = out + (((size_t)b * H + y0 + row) * W + x0) * K;
-    const float* src = so + row * TX * K;
-    for (int i = tid; i < nx * K; i += NTHREADS) o[i] = from_f<T1>(src[i]);
-  }
+  store_tile<NX, T1>(acc, smem, out, ln, b, H, W, C, y0, x0);
 }
 
 template <int NX, typename T1, typename T2>
@@ -298,15 +130,8 @@ int launch(const void* f1, const void* f2, void* out, int B, int H, int W, int C
       smem < smem_bytes(TX, cc, C, sizeof(T1), sizeof(T2)) || smem > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   static unsigned long long attr_set = 0;  // one bit per device, per instantiation
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = allow_max_smem(corr81_kernel<NX, T1, T2>, attr_set);
   if (e != cudaSuccess) return (int)e;
-  if (dev >= 64 || !((attr_set >> dev) & 1ull)) {
-    e = cudaFuncSetAttribute(corr81_kernel<NX, T1, T2>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 64) attr_set |= 1ull << dev;
-  }
   corr81_kernel<NX, T1, T2><<<dim3(grid_x, grid_y, B), NTHREADS, smem, stream>>>(
       static_cast<const T1*>(f1), static_cast<const T2*>(f2), static_cast<T1*>(out),
       H, W, C, cc, w1, w2);
@@ -323,8 +148,6 @@ int launch_nx(int nx, const void* f1, const void* f2, void* out, int B, int H, i
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
-bool width_ok(int w) { return w == 0 || w == 4 || w == 8 || w == 16; }
 
 }  // namespace
 

@@ -24,10 +24,10 @@ window, f2 zero-padded by 4 (reference ``correlation.py:44-112``).
 Each kernel wrapper counts its launches in a plain integer attribute
 (``corr81_cuda.launches``), raised by one per launch and nowhere else.
 
-:func:`corr81_plan` is the ``corr81`` kernel's launch plan (tile, channel
-chunk, grid, block, dynamic shared memory, copy width of each input): a pure
-function of the shapes, dtypes and pointer alignments, so the CPU tests can
-hold its choices to the kernel's limits.
+:func:`corr81_plan` and :func:`warp_corr81_plan` are the two kernels' launch
+plans (tile, channel chunk, grid, block, dynamic shared memory, copy width of
+each input): pure functions of the shapes, dtypes and pointer alignments, so
+the CPU tests can hold their choices to the kernels' limits.
 """
 
 from __future__ import annotations
@@ -102,9 +102,12 @@ _SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_SMEM = 232_448  # shared memory one block may use on Hopper
 _TWO_BLOCKS_SMEM = 233_472 // 2 - 1024  # each of two blocks on one SM (1 KB reserved each)
 _MAX_GRID_Z = 65_535
+_WARP_STAGES = 2  # csrc/warp_corr81.cu's ring of fp32 warped windows
 
 
 class Corr81Plan(NamedTuple):
+    """A launch of either kernel (``corr81`` or ``warp_corr81``)."""
+
     nx: int                       # consecutive output x per thread
     tile: Tuple[int, int]         # output rows × columns per block
     chunk: int                    # channels per ring stage (a power of two, >= 8)
@@ -112,17 +115,39 @@ class Corr81Plan(NamedTuple):
     block: int                    # threads per block
     smem: int                     # dynamic shared-memory bytes
     width1: int                   # bytes per copy of f1 (16, 8, 4; 0 = plain loads)
-    width2: int                   # the same for f2
+    width2: int                   # the same for f2 (warp_corr81: per corner read)
+
+
+def _stage_bytes(tx: int, cc: int, s1: int, s2: int) -> int:
+    """corr81_tile.cuh's ``ring(...).stage_bytes``: the (8+8)×(tx+8) window of
+    s2-byte values and the 8×tx f1 tile, rows padded to odd 16-byte units."""
+    r = CORR_RADIUS
+    ru1 = (tx * cc * s1 // 16) | 1
+    ru2 = ((tx + 2 * r) * cc * s2 // 16) | 1
+    return ((_TILE_ROWS + 2 * r) * ru2 + _TILE_ROWS * ru1) * 16
+
+
+def _window_positions(nx: int) -> int:
+    r = CORR_RADIUS
+    return (_TILE_ROWS + 2 * r) * (_X_GROUPS * nx + 2 * r)
 
 
 def _smem_bytes(nx: int, cc: int, c: int, s1: int, s2: int) -> int:
-    """The kernel's ``smem_bytes``: min(3, chunks) ring stages, or the fp32
+    """corr81.cu's ``smem_bytes``: min(3, chunks) ring stages, or the fp32
     output tile that reuses them, whichever is larger."""
-    tx, r = _X_GROUPS * nx, CORR_RADIUS
-    ru1 = (tx * cc * s1 // 16) | 1           # 16-byte units per row, odd
-    ru2 = ((tx + 2 * r) * cc * s2 // 16) | 1
-    stage = ((_TILE_ROWS + 2 * r) * ru2 + _TILE_ROWS * ru1) * 16
-    return max(min(_STAGES, -(-c // cc)) * stage, _TILE_ROWS * tx * CORR_CHANNELS * 4)
+    tx = _X_GROUPS * nx
+    return max(min(_STAGES, -(-c // cc)) * _stage_bytes(tx, cc, s1, s2),
+               _TILE_ROWS * tx * CORR_CHANNELS * 4)
+
+
+def _warp_smem_bytes(nx: int, cc: int, c: int, s1: int, s2: int) -> int:
+    """warp_corr81.cu's ``smem_bytes``: the corner tables (32 B a window
+    position), the staging of the four corners' reads, and min(2, chunks)
+    ring stages of an fp32 window; or the output tile, whichever is larger."""
+    tx, npos = _X_GROUPS * nx, _window_positions(nx)
+    used = (npos * 32 + 4 * npos * cc * s2
+            + min(_WARP_STAGES, -(-c // cc)) * _stage_bytes(tx, cc, s1, 4))
+    return max(used, _TILE_ROWS * tx * CORR_CHANNELS * 4)
 
 
 def _chunks(c: int):
@@ -145,6 +170,12 @@ def _copy_width(c: int, itemsize: int, align: int) -> int:
     return width if width >= 4 else 0
 
 
+def _gather_width(c: int, itemsize: int, align: int) -> int:
+    """warp_corr81's corner read: the copy width, at most one corner's 4
+    channels (16 bytes fp32, 8 bf16); 0 = element loads."""
+    return min(_copy_width(c, itemsize, align), 4 * itemsize)
+
+
 def _grid(b: int, h: int, w: int, nx: int) -> Tuple[int, int, int]:
     return (math.ceil(w / (_X_GROUPS * nx)), math.ceil(h / _TILE_ROWS), b)
 
@@ -153,6 +184,50 @@ def _nx_cost(b: int, h: int, w: int, nx: int) -> int:
     """Shared-memory cycles of the busiest SM, up to a common factor: blocks per
     SM times one block's 16-byte loads per 4 channels (NX of f1, NX+8 of f2)."""
     return math.ceil(math.prod(_grid(b, h, w, nx)) / _SMS) * (2 * nx + 2 * CORR_RADIUS)
+
+
+def _warp_nx_cost(b: int, h: int, w: int, nx: int) -> int:
+    """The busiest SM's shared-memory work, up to a common factor: waves of
+    two blocks per SM (the plan keeps two per SM whenever the grid has more
+    blocks than SMs) times one block's work per 4 channels, :func:`_nx_cost`'s
+    16-byte loads plus the gather's: about 6 16-byte accesses per window
+    position (4 corner copies in, 4 reads, 1 store; over 288 threads: /48)."""
+    return math.ceil(math.prod(_grid(b, h, w, nx)) / (2 * _SMS)) * (
+        (2 * nx + 2 * CORR_RADIUS) * 48 + _window_positions(nx))
+
+
+def _plan(fused: bool, b: int, h: int, w: int, c: int, dtype1: torch.dtype,
+          dtype2: torch.dtype, align1: int, align2: int, nx: Optional[int],
+          chunk: Optional[int]) -> Corr81Plan:
+    name = "warp_corr81" if fused else "corr81"
+    if dtype1 not in _DTYPE_CODES or dtype2 not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtypes must be float32 or bfloat16, got {dtype1}, {dtype2}")
+    if b > _MAX_GRID_Z:
+        raise ValueError(f"{name}: batch {b} exceeds the grid's {_MAX_GRID_Z}")
+    cost, smem_of = (_warp_nx_cost, _warp_smem_bytes) if fused else (_nx_cost, _smem_bytes)
+    if nx is None:
+        nx = min(CORR81_NX, key=lambda n: (cost(b, h, w, n), -n))
+    elif nx not in CORR81_NX:
+        raise ValueError(f"{name}: nx must be one of {CORR81_NX}, got {nx}")
+    s1, s2 = dtype1.itemsize, dtype2.itemsize
+    grid = _grid(b, h, w, nx)
+    fits = [cc for cc in _chunks(c) if smem_of(nx, cc, c, s1, s2) <= MAX_SMEM]
+    if chunk is None:
+        blocks = math.prod(grid)
+        budget = MAX_SMEM if blocks <= _SMS else _TWO_BLOCKS_SMEM
+        fit = [cc for cc in fits if smem_of(nx, cc, c, s1, s2) <= budget] or [8]
+        # the fused kernel overlaps each chunk's gather with the previous chunk's
+        # arithmetic, so it always wants two chunks or more; corr81 only when the
+        # grid runs in more than one wave
+        if fused or blocks > 2 * 2 * _SMS:
+            fit = [cc for cc in fit if 2 * cc <= c] or fit[:1]
+        chunk = max(fit)
+    elif chunk not in fits:
+        raise ValueError(f"{name}: chunk must be one of {fits}, got {chunk}")
+    width2 = _gather_width(c, s2, align2) if fused else _copy_width(c, s2, align2)
+    return Corr81Plan(nx=nx, tile=(_TILE_ROWS, _X_GROUPS * nx), chunk=chunk, grid=grid,
+                      block=_THREADS, smem=smem_of(nx, chunk, c, s1, s2),
+                      width1=_copy_width(c, s1, align1), width2=width2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,29 +244,21 @@ def corr81_plan(b: int, h: int, w: int, c: int, dtype1: torch.dtype, dtype2: tor
     splits the channels in two or more so that each block's copies overlap
     its arithmetic. ``nx`` or ``chunk`` override either choice.
     """
-    if dtype1 not in _DTYPE_CODES or dtype2 not in _DTYPE_CODES:
-        raise TypeError(f"corr81: dtypes must be float32 or bfloat16, got {dtype1}, {dtype2}")
-    if b > _MAX_GRID_Z:
-        raise ValueError(f"corr81: batch {b} exceeds the grid's {_MAX_GRID_Z}")
-    if nx is None:
-        nx = min(CORR81_NX, key=lambda n: (_nx_cost(b, h, w, n), -n))
-    elif nx not in CORR81_NX:
-        raise ValueError(f"corr81: nx must be one of {CORR81_NX}, got {nx}")
-    s1, s2 = dtype1.itemsize, dtype2.itemsize
-    grid = _grid(b, h, w, nx)
-    fits = [cc for cc in _chunks(c) if _smem_bytes(nx, cc, c, s1, s2) <= MAX_SMEM]
-    if chunk is None:
-        blocks = math.prod(grid)
-        budget = MAX_SMEM if blocks <= _SMS else _TWO_BLOCKS_SMEM
-        fit = [cc for cc in fits if _smem_bytes(nx, cc, c, s1, s2) <= budget] or [8]
-        if blocks > 2 * 2 * _SMS:  # more than one wave: pipeline each block's channels
-            fit = [cc for cc in fit if 2 * cc <= c] or fit[:1]
-        chunk = max(fit)
-    elif chunk not in fits:
-        raise ValueError(f"corr81: chunk must be one of {fits}, got {chunk}")
-    return Corr81Plan(nx=nx, tile=(_TILE_ROWS, _X_GROUPS * nx), chunk=chunk, grid=grid,
-                      block=_THREADS, smem=_smem_bytes(nx, chunk, c, s1, s2),
-                      width1=_copy_width(c, s1, align1), width2=_copy_width(c, s2, align2))
+    return _plan(False, b, h, w, c, dtype1, dtype2, align1, align2, nx, chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def warp_corr81_plan(b: int, h: int, w: int, c: int, dtype1: torch.dtype,
+                     dtype2: torch.dtype, align1: int = 16, align2: int = 16,
+                     nx: Optional[int] = None, chunk: Optional[int] = None) -> Corr81Plan:
+    """The fused ``warp_corr81`` kernel's launch plan, as :func:`corr81_plan`
+    picks it, with three differences: the tile width's cost counts the gather
+    (:func:`_warp_nx_cost`); the shared memory counts the corner tables and the
+    staging of the corner reads (:func:`_warp_smem_bytes`); and the chunk is
+    at most C/2 wherever C allows, so that each chunk's gather overlaps the
+    previous chunk's arithmetic. ``width2`` is the corner reads' copy width.
+    """
+    return _plan(True, b, h, w, c, dtype1, dtype2, align1, align2, nx, chunk)
 
 
 def _alignment(t: torch.Tensor) -> int:
@@ -209,9 +276,10 @@ def _on_device(dev: torch.device):
 
 @functools.lru_cache(maxsize=None)
 def _packed_plan(b: int, h: int, w: int, c: int, dtype1: torch.dtype, dtype2: torch.dtype,
-                 align1: int, align2: int, nx: Optional[int], chunk: Optional[int]):
-    """The plan as the C entry point takes it: 14 packed ints, built once per plan."""
-    p = corr81_plan(b, h, w, c, dtype1, dtype2, align1, align2, nx, chunk)
+                 align1: int, align2: int, nx: Optional[int], chunk: Optional[int],
+                 fused: bool = False):
+    """The plan as the C entry points take it: 14 packed ints, built once per plan."""
+    p = _plan(fused, b, h, w, c, dtype1, dtype2, align1, align2, nx, chunk)
     return (ctypes.c_int * 14)(b, h, w, c, _DTYPE_CODES[dtype1], _DTYPE_CODES[dtype2],
                                p.nx, p.chunk, p.width1, p.width2, p.grid[0], p.grid[1],
                                p.block, p.smem)
@@ -242,10 +310,12 @@ def corr81_cuda(f1: torch.Tensor, f2: torch.Tensor, nx: Optional[int] = None,
 corr81_cuda.launches = 0
 
 
-def warp_corr81_cuda(f1: torch.Tensor, f2: torch.Tensor,
-                     flow: torch.Tensor) -> torch.Tensor:
+def warp_corr81_cuda(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
+                     nx: Optional[int] = None, chunk: Optional[int] = None) -> torch.Tensor:
     """Launch the fused ``warp_corr81`` kernel. f1, f2 as for :func:`corr81_cuda`;
-    flow contiguous (B, H, W, 2) float32 on the same device."""
+    flow contiguous (B, H, W, 2) float32 on the same device. ``nx`` and
+    ``chunk`` force a tile width and channel chunk (:func:`warp_corr81_plan`
+    picks them otherwise)."""
     from .cuda_lib import check, load
 
     _check_features("warp_corr81", f1, f2)
@@ -255,12 +325,13 @@ def warp_corr81_cuda(f1: torch.Tensor, f2: torch.Tensor,
                          f"tensor on {f1.device}, got {flow.dtype} "
                          f"{tuple(flow.shape)} on {flow.device}")
     b, h, w, c = f1.shape
+    plan = _packed_plan(b, h, w, c, f1.dtype, f2.dtype, _alignment(f1), _alignment(f2),
+                        nx, chunk, fused=True)
     out = torch.empty((b, h, w, CORR_CHANNELS), dtype=f1.dtype, device=f1.device)
     lib = load("warp_corr81")
     with _on_device(f1.device):
         rc = lib.warp_corr81_launch(f1.data_ptr(), f2.data_ptr(), flow.data_ptr(),
-                                    out.data_ptr(), b, h, w, c, _DTYPE_CODES[f1.dtype],
-                                    _DTYPE_CODES[f2.dtype],
+                                    out.data_ptr(), plan,
                                     torch.cuda.current_stream().cuda_stream)
     check(lib, "warp_corr81", rc)
     warp_corr81_cuda.launches += 1

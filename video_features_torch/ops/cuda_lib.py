@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes``. A build happens at first
 use, from the package's sources only, into ``video_features_torch/_build/``;
-the library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused. :func:`build` compiles
-several sources at once, one ``nvcc`` process each, started together.
+the library's file name carries a hash of its source, the headers beside it
+and the flags, so an edited source or header is rebuilt and an unchanged one
+is reused. :func:`build` compiles several sources at once, one ``nvcc``
+process each, started together.
 
 Nothing here runs at import: the CPU tests import every module, and this host
 may have neither ``nvcc`` nor a card. A missing compiler or a failed build
@@ -32,7 +33,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "corr81": {"corr81_launch": [_P, _P, _P, _P, _P],  # f1, f2, out, int plan[14], stream
                "corr81_smem_bytes": [_I] * 5},
-    "warp_corr81": {"warp_corr81_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    # f1, f2, flow, out, int plan[14], stream
+    "warp_corr81": {"warp_corr81_launch": [_P, _P, _P, _P, _P, _P],
+                    "warp_corr81_smem_bytes": [_I] * 5},
 }
 
 # name -> loaded library; filled on first use, never at import
@@ -51,10 +54,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    """The library of ``csrc/<name>.cu``, named by a hash of that source, every
+    ``csrc/*.cuh`` header (a source may include any of them) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str]) -> float:
