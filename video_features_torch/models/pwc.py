@@ -156,9 +156,18 @@ def _decode(net: PWCNet, pyr1, pyr2, h: int, w: int, h64: int, w64: int,
         est = _decoder(getattr(net, LEVEL_NAMES[level]), level,
                        pyr1[level - 1], pyr2[level - 1], est, corr_impl)
     flow = est["flow"] + _refiner(net.moduleRefiner.moduleMain, est["feat"])
-    flow = 20.0 * resize_bilinear_torch(flow.float(), h, w)
-    scale = torch.tensor([w / w64, h / h64], dtype=torch.float32, device=flow.device)
-    return flow * scale
+    return _to_input_pixels(20.0 * resize_bilinear_torch(flow.float(), h, w), h, w, h64, w64)
+
+
+def _to_input_pixels(flow: torch.Tensor, h: int, w: int, h64: int, w64: int) -> torch.Tensor:
+    """Scale a fresh (B, H, W, 2) flow from the /64 grid's pixels to the
+    input's, in place: u by w / w64, v by h / h64. Python scalars give the
+    same fp32 products as a multiply by a ``(w / w64, h / h64)`` tensor, and
+    no host tensor is copied to the device (a copy from pageable memory waits
+    for the stream to drain, with the launching thread blocked behind it)."""
+    flow[..., 0].mul_(w / w64)
+    flow[..., 1].mul_(h / h64)
+    return flow
 
 
 def _grid64(h: int, w: int) -> Tuple[int, int]:
